@@ -17,6 +17,8 @@ names = ["repro_torch"] + [
 ]
 for name in names:
     importlib.import_module(name)
+missing = sorted(set({required!r}) - set(names))
+assert not missing, missing
 import chip_smoke
 from repro_torch.kernels import _build
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -27,8 +29,22 @@ print(len(names))
 """
 
 
+# the modules of each slice of the port; the probe fails if one is missing
+REQUIRED = [
+    "repro_torch.core.jrba", "repro_torch.core.online", "repro_torch.fleet.runtime",
+    "repro_torch.kernels.jrba_congestion",
+    # the serving slice
+    "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.shapes",
+    "repro_torch.configs.gemma3_1b", "repro_torch.core.placement",
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+    "repro_torch.models", "repro_torch.models.layers", "repro_torch.models.attention",
+    "repro_torch.models.transformer", "repro_torch.models.model", "repro_torch.models.convert",
+    "repro_torch.serving", "repro_torch.serving.engine", "repro_torch.launch.serve",
+]
+
+
 def test_port_imports_neither_jax_nor_the_reference():
-    code = PROBE.format(src=os.path.join(ROOT, "src"), root=ROOT)
+    code = PROBE.format(src=os.path.join(ROOT, "src"), root=ROOT, required=REQUIRED)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=ROOT,

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Runs on a machine with a CUDA device (``python -m pytest -q -m gpu
 tests/test_torch_kernels_gpu.py``); elsewhere every test skips with its
@@ -13,7 +13,9 @@ from repro_torch.core.jrba import (
     solve_relaxation_sparse,
     solve_relaxation_sparse_batch,
 )
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import jrba_congestion as jc
+from repro_torch.kernels import ref
 
 pytestmark = pytest.mark.gpu
 
@@ -110,3 +112,52 @@ def test_wrapper_rejects_bad_inputs():
     bad[3] = bad[3].cpu()
     with pytest.raises(ValueError):
         jc.sparse_congestion_solve(*bad, n_iters=50)
+
+
+# flash attention: (B, S, H, KH, D, window); tests/test_kernels.py's shapes,
+# ragged lengths, and the gemma3-1b / internlm2-1.8b attention shapes
+FLASH_CASES = [
+    (1, 128, 4, 4, 64, 0), (2, 256, 8, 2, 64, 0), (1, 256, 4, 1, 128, 0),
+    (2, 256, 4, 2, 64, 96), (1, 512, 2, 2, 32, 128), (1, 128, 2, 2, 96, 0),
+    (1, 200, 4, 2, 16, 0), (1, 333, 4, 1, 256, 100),
+    (1, 1024, 4, 1, 256, 512), (1, 1024, 16, 8, 128, 0),
+]
+# tests/test_kernels.py's tolerances, each row held to them at its own scale
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_matches_plain(case, dtype):
+    _need_card()
+    B, S, H, KH, D, window = case
+    rng = np.random.default_rng(sum(case))
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+        for s in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D))
+    )
+    before = fa.flash_attention_hsd.launches
+    got = fa.flash_attention_hsd(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_hsd.launches == before + 1
+    chunk = 64 if S % 64 == 0 else S
+    want = fa.flash_attention_plain(q, k, v, window=window, chunk=chunk)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert ref.attention_limit_ratio(got, want, FLASH_TOL[dtype]) <= 1.0
+
+
+def test_flash_wrapper_rejects_bad_inputs():
+    _need_card()
+    q = torch.zeros(1, 4, 64, 64, device="cuda", dtype=torch.bfloat16)
+    kv = torch.zeros(1, 1, 64, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        fa.flash_attention_hsd(q, kv.float(), kv)
+    with pytest.raises(ValueError):
+        fa.flash_attention_hsd(q, kv.cpu(), kv)
+    with pytest.raises(ValueError):
+        fa.flash_attention_hsd(q[..., :48].contiguous(), kv[..., :48].contiguous(),
+                               kv[..., :48].contiguous())  # no D=48 instance
+    with pytest.raises(ValueError):
+        fa.flash_attention_hsd(q.transpose(2, 3), kv, kv)
+    with pytest.raises(TypeError):
+        fa.flash_attention_hsd(q.half(), kv.half(), kv.half())

@@ -1,0 +1,70 @@
+"""The port's continuous-batching engine (``repro_torch.serving``) against the
+JAX package's, on the CPU, from the same parameters (the JAX init carried over
+by ``params_from_jax``) at f32: the same requests give the same tokens, token
+for token, with more requests than slots so that slots are recycled; and the
+``repro_torch.launch.serve`` command runs end to end."""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+
+import repro.configs as jconfigs
+import repro.models as jm
+import repro.serving as jserving
+import repro_torch.configs as tconfigs
+from repro_torch import serving as tserving
+from repro_torch.launch import serve
+from repro_torch.models.convert import params_from_jax
+
+SLOTS, MAX_LEN, N_REQ = 3, 40, 8
+
+
+def _requests(module, vocab, seed):
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(N_REQ):
+        prompt = rng.randint(1, vocab, size=rng.randint(2, 10)).tolist()
+        out.append(module.Request(uid=i, prompt=prompt, max_new_tokens=int(rng.randint(2, 12))))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b-smoke", "internlm2-1.8b-smoke"])
+def test_engine_tokens_equal_jax(arch):
+    jc = dataclasses.replace(jconfigs.get_config(arch), dtype="float32")
+    tc = dataclasses.replace(tconfigs.get_config(arch), dtype="float32")
+    jp = jm.init_params(jc, jax.random.PRNGKey(1))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tc, "cpu")
+    jeng = jserving.ServingEngine(jc, jp, slots=SLOTS, max_len=MAX_LEN)
+    teng = tserving.ServingEngine(tc, tp, slots=SLOTS, max_len=MAX_LEN, device="cpu")
+    for r in _requests(jserving, jc.vocab, 5):
+        jeng.submit(r)
+    for r in _requests(tserving, tc.vocab, 5):
+        teng.submit(r)
+    jdone = jeng.run_until_drained()
+    tdone = teng.run_until_drained()
+    assert len(tdone) == N_REQ and all(r.done for r in tdone)
+    assert [r.uid for r in tdone] == [r.uid for r in jdone]  # the same finishing order
+    assert [r.output for r in tdone] == [r.output for r in jdone]
+    assert N_REQ > SLOTS  # slots were recycled
+    assert teng.active == 0 and not teng.queue
+    np.testing.assert_array_equal(teng.cache["length"].numpy(), np.asarray(jeng.cache["length"]))
+
+
+def test_engine_rejects_oversized_request():
+    cfg = tconfigs.get_config("internlm2-1.8b-smoke")
+    from repro_torch.models import init_params
+
+    eng = tserving.ServingEngine(cfg, init_params(cfg, 0, device="cpu"), slots=1, max_len=8,
+                                 device="cpu")
+    with pytest.raises(ValueError, match="max_len"):
+        eng.submit(tserving.Request(uid=0, prompt=[1] * 6, max_new_tokens=4))
+
+
+def test_serve_cli_on_cpu(capsys):
+    out = serve.main(
+        ["--arch", "gemma3-1b-smoke", "--requests", "5", "--slots", "2", "--max-len", "40",
+         "--device", "cpu"]
+    )
+    assert out["requests"] == 5 and out["tokens"] > 0 and out["ticks"] > 0
+    assert "served 5 requests" in capsys.readouterr().out
