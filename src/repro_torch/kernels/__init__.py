@@ -3,7 +3,9 @@
 ``jrba_congestion`` runs the sparse JRBA relaxation (the scheduler's solver
 loop) as one CUDA kernel launch per batch; ``flash_attention`` runs causal GQA
 attention with an optional sliding window (the models' prefill attention,
-through the layout wrapper in ``ops``). Sources live in ``csrc/`` and are
+through the layout wrapper in ``ops``); ``ssd`` and ``rwkv6`` run the Mamba-2
+and RWKV-6 chunked scans (the SSM mixers' prefill, through ``ops`` too).
+Sources live in ``csrc/`` and are
 compiled for Hopper on first use (``_build``); importing this package builds
 nothing and needs no CUDA toolkit.
 """

@@ -211,6 +211,7 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o, int B,
     case 32: return launch<T, 32>(q, k, v, o, B, H, KH, S, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, H, KH, S, window, scale, stream);
     case 96: return launch<T, 96>(q, k, v, o, B, H, KH, S, window, scale, stream);
+    case 112: return launch<T, 112>(q, k, v, o, B, H, KH, S, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, H, KH, S, window, scale, stream);
     case 256: return launch<T, 256>(q, k, v, o, B, H, KH, S, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;

@@ -30,7 +30,7 @@ __all__ = [
 
 LIBRARY = "flash_attention"
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 96, 128, 256)  # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)  # the kernel's template instances
 DTYPES = (torch.bfloat16, torch.float32)
 
 

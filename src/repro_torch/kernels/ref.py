@@ -1,14 +1,16 @@
-"""Dense oracles for the port's kernels (the allclose targets of the tests)
-and the comparison that holds the attention kernel to its plain version.
+"""Dense and sequential oracles for the port's kernels (the allclose targets
+of the tests) and the comparison that holds a kernel to its plain version.
 
-Layouts follow the kernels' heads-major convention. Nothing on the model path
-calls these.
+``flash_attention_ref`` follows the kernels' heads-major convention; the
+sequential scans are the model layout's ``(B, S, H, P)`` ground-truth
+recurrences, the torch twins of the JAX model's ``ssd_sequential`` and
+``rwkv6_sequential``. Nothing on the model path calls these.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_limit_ratio", "flash_attention_ref"]
+__all__ = ["flash_attention_ref", "row_limit_ratio", "rwkv6_sequential", "ssd_sequential"]
 
 
 def flash_attention_ref(
@@ -37,14 +39,57 @@ def flash_attention_ref(
     return torch.einsum("bhij,bhjd->bhid", p, vv).to(q.dtype)
 
 
-def attention_limit_ratio(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
-    """Largest ``|got - want|`` over its limit ``tol * (|want| + rms)``, where
-    ``rms`` is the root mean square of ``want``'s row (over the last axis).
-    Each row is held to ``tol`` of its own scale: an attention row over n
-    live keys of unit-variance values shrinks like ``n**-0.5``, so a fixed
-    atol would be as large as the late rows of a long causal sequence. The
+@torch.no_grad()
+def ssd_sequential(x, dt, A, Bm, Cm, *, init_state=None):
+    """Mamba-2 ground truth, one step at a time: ``h_t = exp(dt_t A) h_{t-1}
+    + dt_t B_t x_t``, ``y_t = C_t . h_t``. x (B, S, H, P), dt (B, S, H), A (H,),
+    B/C (B, S, N); returns (y in x's dtype, final state (B, H, N, P) f32)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    f32 = torch.float32
+    h = torch.zeros((B, H, N, P), dtype=f32, device=x.device) if init_state is None \
+        else init_state.to(f32)
+    ys = []
+    for t in range(S):
+        xt, dtt = x[:, t].to(f32), dt[:, t].to(f32)
+        bt, ct = Bm[:, t].to(f32), Cm[:, t].to(f32)
+        a = torch.exp(dtt * A)  # (B, H)
+        h = h * a[:, :, None, None] + torch.einsum("bh,bn,bhp->bhnp", dtt, bt, xt)
+        ys.append(torch.einsum("bn,bhnp->bhp", ct, h))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+@torch.no_grad()
+def rwkv6_sequential(r, k, v, logw, u, *, init_state=None):
+    """RWKV-6 ground truth, one step at a time: ``y_t = r_t . (S_{t-1} +
+    diag(u) k_t v_t^T)``, ``S_t = diag(exp(logw_t)) S_{t-1} + k_t v_t^T``.
+    r, k, v, logw (B, S, H, P), u (H, P); returns (y in r's dtype, final state
+    (B, H, P, P) f32)."""
+    B, S, H, P = r.shape
+    f32 = torch.float32
+    s = torch.zeros((B, H, P, P), dtype=f32, device=r.device) if init_state is None \
+        else init_state.to(f32)
+    ys = []
+    for t in range(S):
+        rt, kt, vt, wt = (a[:, t].to(f32) for a in (r, k, v, logw))
+        kv = torch.einsum("bhp,bhq->bhpq", kt, vt)
+        ys.append(torch.einsum("bhp,bhpq->bhq", rt, s + u.to(f32)[None, :, :, None] * kv))
+        s = s * torch.exp(wt)[..., None] + kv
+    return torch.stack(ys, dim=1).to(r.dtype), s
+
+
+def row_limit_ratio(
+    got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float | None = None
+) -> float:
+    """Largest ``|got - want|`` over its limit ``rtol * |want| + atol * rms``,
+    where ``rms`` is the root mean square of ``want``'s row (over the last
+    axis) and ``atol`` defaults to ``rtol``. Each row is held to the tolerance
+    of its own scale: an attention row over n live keys of unit-variance
+    values shrinks like ``n**-0.5``, and a scan's rows grow with the state, so
+    a fixed atol would be as large as some rows or far below others. The
     outputs agree when the ratio is at most 1."""
+    atol = rtol if atol is None else atol
     got, want = got.float(), want.float()
     rms = want.square().mean(dim=-1, keepdim=True).sqrt()
-    limit = (tol * (want.abs() + rms)).clamp_min(torch.finfo(torch.float32).tiny)
+    limit = (rtol * want.abs() + atol * rms).clamp_min(torch.finfo(torch.float32).tiny)
     return float(((got - want).abs() / limit).max())

@@ -1,0 +1,182 @@
+"""Mamba-2 SSD chunked scan: the CUDA kernel's wrapper and its plain version.
+
+:func:`ssd_chunked` is the plain version, the torch twin of the JAX model's
+``models/ssm.py::ssd_chunked``: ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t``,
+``y_t = C_t . h_t``, computed chunk by chunk (the intra-chunk masked
+"attention" form, then the chunk boundary states carried across chunks by a
+Python loop where the JAX twin runs ``lax.scan``). It returns
+``(y, final_state)``.
+
+:func:`ssd_scan_hsd` takes heads-major ``x (B, H, S, P)``, ``dt (B, H, S)``,
+``A (H,)``, ``B/C (B, S, N)`` and returns ``y (B, H, S, P)`` in x's dtype. On
+a CUDA tensor it launches ``csrc/ssd_scan.cu`` once (counted in
+``ssd_scan_hsd.launches``) and raises on any input the kernel does not take;
+the kernel reads strided views (only the last axis must be dense), so the
+model-layout wrapper ``ops.ssd_scan`` hands it transposed views and no copy is
+made. On a CPU tensor it runs the plain version. The kernel replaces the TPU
+kernel ``_ssd_kernel`` / ``ssd_scan_hsd`` of the JAX package and, like it,
+returns ``y`` only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["CHUNKS", "empty_in_layout", "ssd_chunked", "ssd_scan_hsd", "ssd_scan_plain"]
+
+LIBRARY = "ssd_scan"
+CHUNKS = (16, 32, 64, 128)  # the kernel's chunk lengths (template instances)
+MAX_STATE = 64  # N: the state update keeps up to 4 rows of 16 a thread
+DTYPES = (torch.bfloat16, torch.float32)
+
+
+@torch.no_grad()
+def ssd_chunked(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)  (post-softplus)
+    A: torch.Tensor,  # (H,)  negative
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    *,
+    chunk: int = 64,
+    init_state: torch.Tensor | None = None,  # (B, H, N, P)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B, S, H, P) in x's dtype, final_state (B, H, N, P) f32)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"seq {S} not divisible by chunk {Q}")
+    nc = S // Q
+    f32 = torch.float32
+    xc = x.reshape(B, nc, Q, H, P).to(f32)
+    dtc = dt.reshape(B, nc, Q, H).to(f32)
+    Bc = Bm.reshape(B, nc, Q, N).to(f32)
+    Cc = Cm.reshape(B, nc, Q, N).to(f32)
+    la = dtc * A.to(f32)  # (B, nc, Q, H) log-decay, <= 0
+    cum = torch.cumsum(la, dim=2)  # inclusive
+
+    # intra-chunk (masked "attention" form); exp only where j <= i: the
+    # masked entries may be +inf, and the select drops them
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, Q, Q, H) cum_i - cum_j
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    L = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    # the JAX twin's four-operand einsums, two operands at a time: torch's
+    # einsum would otherwise materialize (B, nc, Q, Q, H, P)
+    W = G[..., None] * L * dtc[:, :, None, :, :]  # (B, nc, Q, Q, H)
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", W, xc)
+
+    # chunk boundary states
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B, nc, Q, H)
+    right = torch.einsum("bcjn,bcjhp->bchnp", Bc, (dtc * decay_to_end)[..., None] * xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B, nc, H)
+    h = torch.zeros((B, H, N, P), dtype=f32, device=x.device) if init_state is None \
+        else init_state.to(f32)
+    h_prev = []
+    for c in range(nc):  # the JAX twin's lax.scan over chunks
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + right[:, c]
+    h_prev = torch.stack(h_prev, dim=1)  # (B, nc, H, N, P) state entering each chunk
+
+    # inter-chunk contribution
+    y_inter = torch.einsum("bcin,bchnp->bcihp", Cc, h_prev) * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(B, S, H, P)
+    return y.to(x.dtype), h
+
+
+def ssd_scan_plain(x, dt, A, Bm, Cm, *, chunk: int = 64) -> torch.Tensor:
+    """:func:`ssd_chunked` in the kernel's heads-major layout, ``y`` only."""
+    y, _ = ssd_chunked(x.transpose(1, 2), dt.transpose(1, 2), A, Bm, Cm, chunk=chunk)
+    return y.transpose(1, 2)
+
+
+def empty_in_layout(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor of x's shape and dtype whose memory is dense in
+    x's own axis order (by decreasing stride): the output of a kernel that was
+    handed a transposed view then transposes back into a contiguous tensor."""
+    order = sorted(range(x.dim()), key=lambda d: -x.stride(d))
+    out = torch.empty([x.shape[d] for d in order], dtype=x.dtype, device=x.device)
+    return out.permute(*sorted(range(x.dim()), key=order.__getitem__))
+
+
+def check_operand(
+    name: str, t: torch.Tensor, device, dtype, shape: tuple, *, dense_last: bool = True
+) -> None:
+    """Raise unless ``t`` is on ``device`` with ``dtype`` and ``shape`` and,
+    with ``dense_last``, a dense last axis (the scan kernels take any other
+    strides)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if dense_last and t.stride(-1) != 1 and shape[-1] != 1:
+        raise ValueError(f"{name} must have a dense last axis, has strides {t.stride()}")
+
+
+def _launcher():
+    fn = _build.load(LIBRARY).ssd_scan_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+@torch.no_grad()
+def ssd_scan_hsd(
+    x: torch.Tensor,  # (B, H, S, P)
+    dt: torch.Tensor,  # (B, H, S) f32
+    A: torch.Tensor,  # (H,) f32, negative
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    *,
+    chunk: int = 64,
+) -> torch.Tensor:
+    """The SSD scan, heads-major; ``y (B, H, S, P)`` in x's dtype. A CUDA
+    ``x`` launches the kernel with chunk length ``min(chunk, S)``, which must
+    be one of :data:`CHUNKS` and divide S; a CPU one runs the plain version."""
+    if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 3:
+        raise ValueError(f"x, dt and B must be 4-, 3- and 3-D, got {x.dim()}, {dt.dim()}, "
+                         f"{Bm.dim()}")
+    B, H, S, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"x has dtype {x.dtype}; the kernel takes {DTYPES}")
+    check_operand("x", x, x.device, x.dtype, (B, H, S, P))
+    check_operand("dt", dt, x.device, torch.float32, (B, H, S), dense_last=False)
+    check_operand("A", A, x.device, torch.float32, (H,))
+    check_operand("B", Bm, x.device, x.dtype, (B, S, N))
+    check_operand("C", Cm, x.device, x.dtype, (B, S, N))
+    if Q not in CHUNKS or S % Q:
+        raise ValueError(f"chunk {Q} for seq {S}: the kernel takes chunks {CHUNKS} dividing S")
+    if not 1 <= N <= MAX_STATE or P % 16:
+        raise ValueError(f"N={N}, P={P}: the kernel takes N <= {MAX_STATE} and P a multiple of 16")
+    y = empty_in_layout(x)
+    strides = (ctypes.c_longlong * 13)(
+        *x.stride()[:3], *dt.stride(), *Bm.stride()[:2], *Cm.stride()[:2], *y.stride()[:3]
+    )
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _launcher()(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            y.data_ptr(), B, H, S, P, N, Q, strides, int(x.dtype == torch.bfloat16), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+    ssd_scan_hsd.launches += 1
+    return y
+
+
+ssd_scan_hsd.launches = 0

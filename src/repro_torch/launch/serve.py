@@ -3,6 +3,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b-smoke \
       --requests 16 --slots 4 --device cpu
 
+Any ported architecture runs: the dense attention models, zamba2-7b and
+rwkv6-3b (and their ``-smoke`` configs).
+
 Weights are the port's seeded random init; nothing is downloaded. Runs on the
 card unless ``--device cpu`` is given.
 """

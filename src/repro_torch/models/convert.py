@@ -5,8 +5,11 @@ numpy array (``jax.tree.map(np.asarray, params)``) and returns the port's
 tree on ``device``. The JAX stack keeps each pattern position's leaves
 stacked over the ``n_pattern_repeats`` groups (its ``lax.scan`` layout); the
 port keeps one dict per block, so group g, pattern position i becomes layer
-``len(prefix) + g * len(pattern) + i``. bf16 leaves (numpy's ``bfloat16``
-extension type) are carried bit for bit. Nothing here imports JAX.
+``len(prefix) + g * len(pattern) + i``. The shared attention mixer
+(``stack["shared_attn"]``, ``None`` for every model but zamba2) is carried
+once, and every ``shared_attn`` block reads it. bf16 leaves (numpy's
+``bfloat16`` extension type) are carried bit for bit. Nothing here imports
+JAX.
 """
 from __future__ import annotations
 
@@ -49,6 +52,9 @@ def params_from_jax(tree: dict, cfg, device="cuda") -> dict:
             "prefix": [_tree(bp, device) for bp in stack["prefix"]],
             "groups": groups,
             "suffix": [_tree(bp, device) for bp in stack["suffix"]],
+            "shared_attn": None
+            if stack["shared_attn"] is None
+            else _tree(stack["shared_attn"], device),
         },
     }
     if "unembed" in tree:

@@ -21,6 +21,10 @@ import numpy as np
 import torch
 
 from ..models import decode_step, init_cache
+from ..models.transformer import layers
+
+# the cache leaves that carry recurrent state (Mamba-2 and RWKV-6 mixers)
+RECURRENT = ("ssm", "wkv", "conv", "x_prev")
 
 
 @dataclasses.dataclass
@@ -86,9 +90,18 @@ class ServingEngine:
                 slot.request = req
                 slot.prefill_left = list(req.prompt)
                 # reset this slot's cache region: zero length is sufficient
-                # (stale K/V beyond `length` is masked out; the ported
-                # mixers keep no recurrent state to zero)
+                # (stale K/V beyond `length` is masked out)
                 self.cache["length"][i] = 0
+                self._reset_recurrent_state(i)
+
+    def _reset_recurrent_state(self, slot: int) -> None:
+        """SSM states aren't length-masked (they're running sums), so zero
+        them when a slot is recycled. Every cache leaf has the batch on axis 0
+        (the JAX package's group-stacked leaves have it on axis 1)."""
+        for layer in layers(self.cfg, self.cache["blocks"]):
+            for name, leaf in layer.items():
+                if name in RECURRENT:  # k/v caches are length-masked; no reset needed
+                    leaf[slot] = 0
 
     def tick(self) -> bool:
         """One engine step: admit, build the token batch (prefill tokens for

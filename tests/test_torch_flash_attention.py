@@ -98,9 +98,9 @@ def test_attention_limit_scales_with_each_row():
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 1, S, 32)).astype(np.float32))
                for _ in range(3))
     want = fa.flash_attention_plain(q, k, v)
-    assert ref.attention_limit_ratio(want.bfloat16(), want, 2e-2) <= 1.0
+    assert ref.row_limit_ratio(want.bfloat16(), want, 2e-2) <= 1.0
     rms = want.square().mean(dim=-1, keepdim=True).sqrt()
     late = want.clone()
     late[..., S - 256 :, :] += 0.03 * rms[..., S - 256 :, :]
     torch.testing.assert_close(late, want, rtol=2e-2, atol=2e-2)
-    assert ref.attention_limit_ratio(late, want, 2e-2) > 1.0
+    assert ref.row_limit_ratio(late, want, 2e-2) > 1.0

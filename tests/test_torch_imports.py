@@ -40,6 +40,9 @@ REQUIRED = [
     "repro_torch.models", "repro_torch.models.layers", "repro_torch.models.attention",
     "repro_torch.models.transformer", "repro_torch.models.model", "repro_torch.models.convert",
     "repro_torch.serving", "repro_torch.serving.engine", "repro_torch.launch.serve",
+    # the SSM slice
+    "repro_torch.configs.zamba2_7b", "repro_torch.configs.rwkv6_3b",
+    "repro_torch.kernels.ssd", "repro_torch.kernels.rwkv6", "repro_torch.models.ssm",
 ]
 
 

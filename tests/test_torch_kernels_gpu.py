@@ -15,7 +15,9 @@ from repro_torch.core.jrba import (
 )
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import jrba_congestion as jc
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rwkv6 as rw
+from repro_torch.kernels import ssd
 
 pytestmark = pytest.mark.gpu
 
@@ -121,6 +123,7 @@ FLASH_CASES = [
     (2, 256, 4, 2, 64, 96), (1, 512, 2, 2, 32, 128), (1, 128, 2, 2, 96, 0),
     (1, 200, 4, 2, 16, 0), (1, 333, 4, 1, 256, 100),
     (1, 1024, 4, 1, 256, 512), (1, 1024, 16, 8, 128, 0),
+    (1, 256, 32, 32, 112, 0), (1, 300, 4, 4, 112, 0),  # zamba2-7b's shared attention
 ]
 # tests/test_kernels.py's tolerances, each row held to them at its own scale
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
@@ -143,7 +146,7 @@ def test_flash_kernel_matches_plain(case, dtype):
     chunk = 64 if S % 64 == 0 else S
     want = fa.flash_attention_plain(q, k, v, window=window, chunk=chunk)
     assert got.dtype == dtype and bool(torch.isfinite(got).all())
-    assert ref.attention_limit_ratio(got, want, FLASH_TOL[dtype]) <= 1.0
+    assert ref.row_limit_ratio(got, want, FLASH_TOL[dtype]) <= 1.0
 
 
 def test_flash_wrapper_rejects_bad_inputs():
@@ -161,3 +164,136 @@ def test_flash_wrapper_rejects_bad_inputs():
         fa.flash_attention_hsd(q.transpose(2, 3), kv, kv)
     with pytest.raises(TypeError):
         fa.flash_attention_hsd(q.half(), kv.half(), kv.half())
+
+
+# the SSM scans: tests/test_kernels.py's SSD_CASES (B, S, H, P, N, chunk) and
+# RWKV_CASES (B, S, H, P, chunk), copied (that file imports JAX), then the
+# model heads at a short length: zamba2-7b (H=112, P=64, N=64, chunk 64),
+# rwkv6-3b (H=40, P=64, chunk 16)
+SSD_CASES = [(2, 128, 2, 16, 8, 32), (1, 256, 4, 64, 64, 64), (2, 64, 1, 32, 16, 64),
+             (1, 512, 2, 64, 32, 128), (1, 512, 112, 64, 64, 64), (1, 64, 3, 16, 16, 16)]
+RWKV_CASES = [(2, 128, 2, 16, 16), (1, 256, 4, 64, 16), (2, 64, 1, 32, 8),
+              (1, 512, 2, 64, 16), (1, 256, 40, 64, 16)]
+# tests/test_kernels.py's tolerances (rtol, atol), the atol a share of each
+# output row's root mean square
+SCAN_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (2e-4, 5e-4)}
+
+
+def _cuda(rng, shape, dtype=torch.float32, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(
+        "cuda", dtype
+    )
+
+
+def _ssd_args(case, dtype, seed=0):
+    B, S, H, P, N, _ = case
+    rng = np.random.default_rng(seed)
+    x = _cuda(rng, (B, S, H, P), dtype)
+    dt = torch.nn.functional.softplus(_cuda(rng, (B, S, H)) - 1.0)
+    A = -torch.exp(torch.from_numpy(rng.uniform(0.0, 2.0, H).astype(np.float32)).cuda())
+    return x, dt, A, _cuda(rng, (B, S, N), dtype), _cuda(rng, (B, S, N), dtype)
+
+
+def _rwkv_args(case, dtype, seed=0):
+    B, S, H, P, _ = case
+    rng = np.random.default_rng(seed)
+    r, k = (_cuda(rng, (B, S, H, P), dtype, 0.5) for _ in range(2))
+    v = _cuda(rng, (B, S, H, P), dtype)
+    logw = -torch.exp(torch.from_numpy(rng.uniform(-8.0, 1.0, (B, S, H, P)).astype(np.float32))
+                      ).cuda()
+    return r, k, v, logw, _cuda(rng, (H, P), scale=0.3)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_kernel_matches_plain(case, dtype):
+    """Through the model-layout wrapper (strided views, no copies), one launch
+    each; against the chunked plain version and the sequential oracle."""
+    _need_card()
+    chunk = case[-1]
+    args = _ssd_args(case, dtype)
+    before = ssd.ssd_scan_hsd.launches
+    got = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_hsd.launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous() and bool(torch.isfinite(got).all())
+    want, _ = ssd.ssd_chunked(*args, chunk=chunk)
+    assert ref.row_limit_ratio(got, want, *SCAN_TOL[dtype]) <= 1.0
+    if case[1] <= 256:
+        seq, _ = ref.ssd_sequential(*args)
+        assert ref.row_limit_ratio(got, seq, *SCAN_TOL[dtype]) <= 1.0
+
+
+@pytest.mark.parametrize("case", RWKV_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rwkv6_kernel_matches_plain(case, dtype):
+    _need_card()
+    chunk = case[-1]
+    args = _rwkv_args(case, dtype)
+    before = rw.rwkv6_scan_hsd.launches
+    got = ops.rwkv6_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert rw.rwkv6_scan_hsd.launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous() and bool(torch.isfinite(got).all())
+    want, _ = rw.rwkv6_chunked(*args, chunk=chunk)
+    assert ref.row_limit_ratio(got, want, *SCAN_TOL[dtype]) <= 1.0
+    if case[1] <= 256:
+        seq, _ = ref.rwkv6_sequential(*args)
+        assert ref.row_limit_ratio(got, seq, *SCAN_TOL[dtype]) <= 1.0
+
+
+def test_rwkv6_kernel_cliff_decay():
+    """Half the channels at the clamp (|logw| = e), half nearly without decay,
+    at Q=16: the factorization's largest k-side factor, e^43.5."""
+    _need_card()
+    rng = np.random.default_rng(4)
+    B, S, H, P = 1, 64, 2, 64
+    r, k, v = (_cuda(rng, (B, S, H, P)) for _ in range(3))
+    u = _cuda(rng, (H, P))
+    cliff = torch.where(torch.arange(P, device="cuda") < P // 2, -float(np.e), -1e-3)
+    logw = cliff.expand(B, S, H, P).contiguous()
+    got = ops.rwkv6_scan(r, k, v, logw, u, chunk=16)
+    want, _ = ref.rwkv6_sequential(r, k, v, logw, u)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_scan_wrappers_reject_bad_inputs():
+    """Wrong dtype, shape, device or chunk: the wrappers raise and never fall
+    back to the plain version for a CUDA tensor."""
+    _need_card()
+    x, dt, A, Bm, Cm = _ssd_args((1, 128, 2, 32, 16, 32), torch.bfloat16)
+    hsd = (x.transpose(1, 2), dt.transpose(1, 2), A, Bm, Cm)
+    ssd.ssd_scan_hsd(*hsd, chunk=32)
+    for bad, err in [
+        ((hsd[0].float(), *hsd[1:]), TypeError),  # x and B/C types differ
+        ((hsd[0], hsd[1].bfloat16(), *hsd[2:]), TypeError),  # dt must be f32
+        ((hsd[0], hsd[1], hsd[2], Bm.cpu(), Cm), ValueError),  # device
+        ((hsd[0], hsd[1], hsd[2][:1], Bm, Cm), ValueError),  # shape of A
+        ((hsd[0][..., :24], *hsd[1:]), ValueError),  # P not a multiple of 16
+        ((hsd[0].half(), hsd[1], hsd[2], Bm.half(), Cm.half()), TypeError),
+    ]:
+        with pytest.raises(err):
+            ssd.ssd_scan_hsd(*bad, chunk=32)
+    for chunk in (8, 48):  # not a kernel chunk; 48 does not divide S
+        with pytest.raises(ValueError, match="chunk"):
+            ssd.ssd_scan_hsd(*hsd, chunk=chunk)
+    with pytest.raises(ValueError):  # a non-dense last axis
+        ssd.ssd_scan_hsd(hsd[0].transpose(2, 3).contiguous().transpose(2, 3), *hsd[1:], chunk=32)
+
+    r, k, v, logw, u = _rwkv_args((1, 64, 2, 64, 16), torch.float32)
+    t = lambda a: a.transpose(1, 2)  # noqa: E731
+    rw.rwkv6_scan_hsd(t(r), t(k), t(v), t(logw), u)
+    for bad, err in [
+        ((t(r).bfloat16(), t(k), t(v), t(logw), u), TypeError),
+        ((t(r), t(k), t(v), t(logw).bfloat16(), u), TypeError),
+        ((t(r), t(k).cpu(), t(v), t(logw), u), ValueError),
+        ((t(r), t(k), t(v), t(logw), u[:1]), ValueError),
+        ((t(r)[..., :8], t(k)[..., :8], t(v)[..., :8], t(logw)[..., :8], u[:, :8]), ValueError),
+    ]:
+        with pytest.raises(err):
+            rw.rwkv6_scan_hsd(*bad)
+    for chunk in (32, 64):
+        with pytest.raises(ValueError, match="chunk"):
+            rw.rwkv6_scan_hsd(t(r), t(k), t(v), t(logw), u, chunk=chunk)
+    with pytest.raises(ValueError, match="chunk"):  # 12 does not divide S=64
+        rw.rwkv6_scan_hsd(t(r), t(k), t(v), t(logw), u, chunk=12)

@@ -29,8 +29,12 @@ def _requests(module, vocab, seed):
     return out
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b-smoke", "internlm2-1.8b-smoke"])
+@pytest.mark.parametrize(
+    "arch", ["gemma3-1b-smoke", "internlm2-1.8b-smoke", "zamba2-7b-smoke", "rwkv6-3b-smoke"]
+)
 def test_engine_tokens_equal_jax(arch):
+    """For the SSM archs a recycled slot must also have its recurrent state
+    (conv window, SSD and wkv states, token shift) zeroed on admission."""
     jc = dataclasses.replace(jconfigs.get_config(arch), dtype="float32")
     tc = dataclasses.replace(tconfigs.get_config(arch), dtype="float32")
     jp = jm.init_params(jc, jax.random.PRNGKey(1))
@@ -65,6 +69,15 @@ def test_serve_cli_on_cpu(capsys):
     out = serve.main(
         ["--arch", "gemma3-1b-smoke", "--requests", "5", "--slots", "2", "--max-len", "40",
          "--device", "cpu"]
+    )
+    assert out["requests"] == 5 and out["tokens"] > 0 and out["ticks"] > 0
+    assert "served 5 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b-smoke", "rwkv6-3b-smoke"])
+def test_serve_cli_on_cpu_ssm(arch, capsys):
+    out = serve.main(
+        ["--arch", arch, "--requests", "5", "--slots", "2", "--max-len", "40", "--device", "cpu"]
     )
     assert out["requests"] == 5 and out["tokens"] > 0 and out["ticks"] > 0
     assert "served 5 requests" in capsys.readouterr().out

@@ -1,0 +1,228 @@
+"""The port's SSM scans and mixers (``repro_torch.kernels.ssd`` / ``rwkv6`` and
+``repro_torch.models.ssm``) against the JAX package's, on the CPU. Inputs are
+made with numpy from a seed and handed to both packages bit for bit. The scan
+wrappers run their chunked plain versions here; they are held to the JAX
+package's Pallas kernels in interpret mode and to the sequential oracles at
+``tests/test_kernels.py``'s cases and tolerances. The mixers run from the
+same parameters (the JAX init carried over)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _hypothesis_compat import given, settings, st
+from test_kernels import RWKV_CASES, SSD_CASES, tol
+
+import repro.configs as jconfigs
+from repro.kernels import ops as jops
+from repro.models import ssm as jssm
+import repro_torch.configs as tconfigs
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_scan_hsd
+from repro_torch.kernels.ssd import ssd_chunked, ssd_scan_hsd
+from repro_torch.models import ssm as tssm
+from repro_torch.models.convert import tensor_from_numpy
+
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+F32 = dict(rtol=1e-4, atol=1e-4)
+
+
+def _both(a: np.ndarray, dtype: str = "float32"):
+    """(jax array, torch tensor) holding the same values in ``dtype``."""
+    j = jnp.asarray(a).astype(JDT[dtype])
+    return j, tensor_from_numpy(np.asarray(j), "cpu")
+
+
+def _np(t) -> np.ndarray:
+    return np.asarray(t.float() if isinstance(t, torch.Tensor) else jnp.asarray(t, jnp.float32))
+
+
+def _close(got, want, dtype: str, **kw):
+    np.testing.assert_allclose(_np(got), _np(want), **(kw or tol(JDT[dtype])))
+
+
+def _ssd_inputs(case, dtype, seed=0):
+    B, S, H, P, N, _ = case
+    rng = np.random.default_rng(seed)
+    x = _both(rng.standard_normal((B, S, H, P)), dtype)
+    dt = _both(np.logaddexp(rng.standard_normal((B, S, H)) - 1.0, 0.0))  # softplus
+    A = _both(-np.exp(rng.uniform(0.0, 2.0, H)))
+    Bm = _both(rng.standard_normal((B, S, N)), dtype)
+    Cm = _both(rng.standard_normal((B, S, N)), dtype)
+    return x, dt, A, Bm, Cm
+
+
+def _rwkv_inputs(case, dtype, seed=0):
+    B, S, H, P, _ = case
+    rng = np.random.default_rng(seed)
+    r = _both(rng.standard_normal((B, S, H, P)) * 0.5, dtype)
+    k = _both(rng.standard_normal((B, S, H, P)) * 0.5, dtype)
+    v = _both(rng.standard_normal((B, S, H, P)), dtype)
+    # decay across the model's whole valid range, logw in [-e, ~0)
+    logw = _both(-np.exp(rng.uniform(-8.0, 1.0, (B, S, H, P))))
+    u = _both(rng.standard_normal((H, P)) * 0.3)
+    return r, k, v, logw, u
+
+
+# ---------------------------------------------------------------------------
+# the scans
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_plain_matches_pallas_and_sequential(case, dtype):
+    chunk = case[-1]
+    (jx, tx), (jdt, tdt), (jA, tA), (jB, tB), (jC, tC) = _ssd_inputs(case, dtype)
+    before = ssd_scan_hsd.launches
+    got = tops.ssd_scan(tx, tdt, tA, tB, tC, chunk=chunk)
+    assert ssd_scan_hsd.launches == before  # a CPU tensor runs the plain version
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    pallas = jops.ssd_scan(jx, jdt, jA, jB, jC, chunk=chunk, interpret=True)
+    _close(got, pallas, dtype)
+    seq, seq_state = tref.ssd_sequential(tx, tdt, tA, tB, tC)
+    _close(got, seq, dtype)
+    y, state = ssd_chunked(tx, tdt, tA, tB, tC, chunk=chunk)
+    assert torch.equal(y, got)
+    _close(state, seq_state, "float32", **tol(jnp.float32))
+    jseq, jstate = jssm.ssd_sequential(jx, jdt, jA, jB, jC)  # the two oracles agree
+    _close(seq, jseq, dtype)
+    _close(seq_state, jstate, "float32", **tol(jnp.float32))
+
+
+@pytest.mark.parametrize("case", RWKV_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_plain_matches_pallas_and_sequential(case, dtype):
+    chunk = case[-1]
+    (jr, tr), (jk, tk), (jv, tv), (jw, tw), (ju, tu) = _rwkv_inputs(case, dtype)
+    before = rwkv6_scan_hsd.launches
+    got = tops.rwkv6_scan(tr, tk, tv, tw, tu, chunk=chunk)
+    assert rwkv6_scan_hsd.launches == before
+    assert got.dtype == tr.dtype and got.shape == tr.shape
+    pallas = jops.rwkv6_scan(jr, jk, jv, jw, ju, chunk=chunk, interpret=True)
+    _close(got, pallas, dtype)
+    seq, seq_state = tref.rwkv6_sequential(tr, tk, tv, tw, tu)
+    _close(got, seq, dtype)
+    y, state = rwkv6_chunked(tr, tk, tv, tw, tu, chunk=chunk)
+    assert torch.equal(y, got)
+    _close(state, seq_state, "float32", **tol(jnp.float32))
+    jseq, jstate = jssm.rwkv6_sequential(jr, jk, jv, jw, ju)
+    _close(seq, jseq, dtype)
+    _close(seq_state, jstate, "float32", **tol(jnp.float32))
+
+
+@settings(max_examples=8, deadline=None)
+@given(chunks=st.integers(1, 3), n=st.sampled_from([4, 8]), seed=st.integers(0, 2**16))
+def test_ssd_property_no_decay_cumsum(chunks, n, seed):
+    """With A -> 0 (no decay) and C_t = B_t = const of unit norm, the SSD scan
+    is a causal cumulative sum of dt_j * x_j."""
+    B, Q, H, P = 1, 32, 2, 8
+    S = chunks * Q
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((B, S, H, P)).astype(np.float32))
+    dt = torch.from_numpy(np.logaddexp(rng.standard_normal((B, S, H)), 0.0).astype(np.float32))
+    A = torch.full((H,), -1e-9)
+    Bv = torch.ones((B, S, n)) / np.sqrt(n)
+    out = tops.ssd_scan(x, dt, A, Bv, Bv, chunk=Q)
+    expect = torch.cumsum(dt[..., None] * x, dim=1)
+    np.testing.assert_allclose(out.numpy(), expect.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@settings(max_examples=8, deadline=None)
+@given(
+    chunks=st.integers(1, 4),
+    h=st.sampled_from([1, 2]),
+    p=st.sampled_from([8, 16]),
+    seed=st.integers(0, 2**16),
+)
+def test_rwkv6_property_cliff_decay(chunks, h, p, seed):
+    """At the model's decay clamp (|logw| = e, the strongest decay) on half
+    the channels and nearly none on the rest, a cliff profile, the chunked
+    scan at Q=16 still matches the sequential oracle."""
+    B, Q = 1, 16
+    S = chunks * Q
+    rng = np.random.default_rng(seed)
+    r, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, p)).astype(np.float32))
+               for _ in range(3))
+    u = torch.from_numpy(rng.standard_normal((h, p)).astype(np.float32))
+    cliff = torch.where(torch.arange(p) < p // 2, -float(np.e), -1e-3)
+    logw = cliff.expand(B, S, h, p).contiguous()
+    out = tops.rwkv6_scan(r, k, v, logw, u, chunk=Q)
+    expect, _ = tref.rwkv6_sequential(r, k, v, logw, u)
+    np.testing.assert_allclose(out.numpy(), expect.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [17, 32, 64])
+def test_rwkv6_wrapper_raises_above_chunk_16(chunk):
+    """exp(-cumsum(logw)) reaches e^(Q e): finite in f32 only up to Q=16, so
+    the wrapper refuses longer chunks on every device (the JAX package's
+    model-layout wrapper defaults to 64)."""
+    (_, r), (_, k), (_, v), (_, w), (_, u) = _rwkv_inputs((1, 64, 1, 16, 16), "float32")
+    with pytest.raises(ValueError, match="chunk"):
+        tops.rwkv6_scan(r, k, v, w, u, chunk=chunk)
+    with pytest.raises(ValueError, match="chunk"):
+        rwkv6_scan_hsd(*(t.transpose(1, 2) for t in (r, k, v, w)), u, chunk=chunk)
+    assert tops.rwkv6_scan(r, k, v, w, u).shape == r.shape  # the default is 16
+
+
+def test_scan_outputs_keep_the_model_layout():
+    """The heads-major wrappers take transposed views of model-layout tensors;
+    the result transposes back to a contiguous model-layout tensor."""
+    from repro_torch.kernels.ssd import empty_in_layout
+
+    x = torch.zeros(2, 5, 3, 4).transpose(1, 2)  # a (B, H, S, P) view of (B, S, H, P)
+    y = empty_in_layout(x)
+    assert y.shape == x.shape and y.stride() == x.stride()
+    assert y.transpose(1, 2).is_contiguous()
+    sliced = torch.zeros(2, 5, 20)[..., :12].reshape(2, 5, 3, 4).transpose(1, 2)
+    assert empty_in_layout(sliced).transpose(1, 2).is_contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the mixers, from the same parameters
+# ---------------------------------------------------------------------------
+def _mixer_pair(arch, dtype, init):
+    jc = dataclasses.replace(jconfigs.get_config(arch), dtype=dtype)
+    tc = dataclasses.replace(tconfigs.get_config(arch), dtype=dtype)
+    jp = getattr(jssm, init)(jax.random.PRNGKey(3), jc, JDT[dtype])
+    tp = {k: tensor_from_numpy(np.asarray(v), "cpu") for k, v in jp.items()}
+    return jc, tc, jp, tp
+
+
+def _mixer_tol(dtype, want):
+    """f32 within 1e-4; bf16 by tests/test_torch_models.py's rule (rtol 2e-2,
+    atol 2e-2 of the largest output)."""
+    if dtype == "float32":
+        return F32
+    return dict(rtol=2e-2, atol=2e-2 * float(np.abs(_np(want)).max()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "arch, mixer", [("zamba2-7b-smoke", "mamba2"), ("rwkv6-3b-smoke", "rwkv6")]
+)
+def test_mixer_apply_and_decode_match_jax(arch, mixer, dtype):
+    """``*_apply`` on a whole sequence, then ``*_decode`` token by token from
+    a zero cache (state written in place), against the JAX functions."""
+    B, S = 2, 32
+    jc, tc, jp, tp = _mixer_pair(arch, dtype, f"{mixer}_init")
+    rng = np.random.default_rng(7)
+    jx, tx = _both(rng.standard_normal((B, S, jc.d_model)), dtype)
+    chunk = 32 if mixer == "mamba2" else 16
+    want = getattr(jssm, f"{mixer}_apply")(jp, jc, jx, chunk=chunk)
+    got = getattr(tssm, f"{mixer}_apply")(tp, tc, tx, chunk=chunk)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    _close(got, want, dtype, **_mixer_tol(dtype, want))
+
+    jcache = getattr(jssm, f"{mixer}_init_cache")(jc, B, JDT[dtype])
+    tcache = getattr(tssm, f"{mixer}_init_cache")(tc, B, tx.dtype, "cpu")
+    state = {k: v for k, v in tcache.items()}  # the tensors the steps must write
+    jstep = jax.jit(lambda p, x, c: getattr(jssm, f"{mixer}_decode")(p, jc, x, c, 0))
+    for t in range(S):
+        jy, jcache = jstep(jp, jx[:, t : t + 1], jcache)
+        ty, tcache = getattr(tssm, f"{mixer}_decode")(tp, tc, tx[:, t : t + 1], tcache, t)
+        _close(ty, jy, dtype, **_mixer_tol(dtype, jy))
+    for name, leaf in tcache.items():
+        assert leaf is state[name]  # updated in place
+        _close(leaf, jcache[name], dtype, **_mixer_tol(dtype, jcache[name]))
