@@ -10,8 +10,13 @@ Phases, in the order they run, each failing hard:
 1. Device: the card's name, count and power limit. No card, no run.
 2. Build: every kernel under ``src/repro_torch/kernels/csrc`` is compiled
    with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
-   together (``-Xptxas -v`` shown).
-3. Flash attention against plain: the CUDA kernel against its plain version
+   together (``-Xptxas -v`` shown). The bf16 flash library is disassembled
+   (``cuobjdump -sass``, beside ``nvcc`` or Triton's copy): it must hold
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions, and ptxas must
+   report no spills in it.
+3. Flash attention against plain: the two CUDA kernels (bf16 on the tensor
+   cores, ``flash_attention_wgmma.cu``; f32 on the CUDA cores,
+   ``flash_attention.cu``) against their plain version
    (``blockwise_attention``) on the card, bf16 within 2e-2 and f32 within
    2e-4 of each output row's scale (``kernels.ref.row_limit_ratio``), at
    ``tests/test_kernels.py``'s shapes, gemma3-1b's (S=4096, H=4, KH=1, D=256,
@@ -32,8 +37,10 @@ Phases, in the order they run, each failing hard:
    and rwkv6-3b (2,863,516,160) in turn, each at full width and depth from
    the port's seeded init and freed before the next: ``prefill`` at B=1,
    S=32768 (the prefill_32k length): time, tokens/s, peak memory, and
-   exactly one launch per layer of each kernel's kind (gemma3-1b: 26 flash;
-   zamba2-7b: 68 SSD and 13 flash; rwkv6-3b: 32 RWKV-6). At S=4096 the
+   exactly one launch per layer of each kernel's kind (gemma3-1b: 26 bf16
+   flash; zamba2-7b: 68 SSD and 13 bf16 flash; rwkv6-3b: 32 RWKV-6; the f32
+   checks of each model the same counts, with flash on the f32 kernel). At
+   S=4096 the
    last-position logits through the kernels and through their plain versions
    must agree within the model's limit (a share of the largest logit, 2-4x
    the gap read on the card) with the same top-1 token. A profiler window
@@ -71,10 +78,13 @@ it and read just after; a kernel a path is not expected to launch must show
 ``solver="cuda"`` (the placement, the scheduler, the single and batched
 replays, each fleet run) must have launched it, each on ``solver="sparse"``
 or the CPU must not have. Each model kernel's main path is the S=32768
-prefill of its model (flash attention: gemma3-1b's, 26 launches; SSD:
+prefill of its model (bf16 flash attention: gemma3-1b's, 26 launches; SSD:
 zamba2-7b's, 68; RWKV-6: rwkv6-3b's, 32); the S=4096 prefills and
 ``forward`` launch them once per layer, the plain reference runs and the
-serving loops (whose decode is plain PyTorch) not at all.
+serving loops (whose decode is plain PyTorch) not at all. The f32 flash
+kernel's path is gemma3-1b's f32 prefill at S=4096 (26 launches).
+``flash_attention_hsd.launches`` counts both flash kernels and must equal
+their sum on every path.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -85,6 +95,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -136,13 +147,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# every kernel wrapper of the port, by kernel name; each counts its launches
+# every kernel launcher of the port, by kernel name; each counts its launches
 COUNTERS = {
     "jrba_congestion": jc.sparse_congestion_solve,
-    "flash_attention": fa.flash_attention_hsd,
+    "flash_attention_wgmma": fa.flash_attention_wgmma,  # bf16, tensor cores
+    "flash_attention": fa.flash_attention_f32,  # f32, CUDA cores
     "ssd_scan": ssd.ssd_scan_hsd,
     "rwkv6_scan": rw.rwkv6_scan_hsd,
 }
+FLASH_KERNELS = ("flash_attention_wgmma", "flash_attention")
 
 
 def counted_all(label: str, expect: dict, fn, *args, **kwargs):
@@ -150,12 +163,17 @@ def counted_all(label: str, expect: dict, fn, *args, **kwargs):
     it and read just after; returns ``(result, {kernel: launches})``.
     ``expect`` maps a kernel to True (must have launched), or to the exact
     count it must show; kernels it does not name must show 0."""
-    for wrapper in COUNTERS.values():
+    for wrapper in (*COUNTERS.values(), fa.flash_attention_hsd):
         wrapper.launches = 0
     out = fn(*args, **kwargs)
     torch.cuda.synchronize()
     counts = {name: wrapper.launches for name, wrapper in COUNTERS.items()}
     log(f"[launches] {label}: {json.dumps(counts)}")
+    flash = sum(counts[name] for name in FLASH_KERNELS)
+    assert fa.flash_attention_hsd.launches == flash, (
+        f"{label}: flash_attention_hsd counted {fa.flash_attention_hsd.launches}, "
+        f"its kernels {flash}"
+    )
     for name, n in counts.items():
         want = expect.get(name, 0)
         if want is True:
@@ -176,18 +194,65 @@ def counted(label: str, kernel: bool, fn, *args, **kwargs):
 # ---------------------------------------------------------------------------
 # phase 2: build
 # ---------------------------------------------------------------------------
-def build_all() -> None:
+def build_all() -> dict[str, str]:
+    """Returns each source's compiler output (``-Xptxas -v``) by name."""
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
     # one nvcc per source, all started together, so the build takes as long
-    # as the slowest source however many the port grows
+    # as the slowest source however many the port grows; built anew from the
+    # checkout's sources even where a library is there, so ptxas reports
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
-        built = list(pool.map(lambda n: _build.build(n, ptxas_verbose=True), names))
+        built = list(pool.map(lambda n: _build.build(n, ptxas_verbose=True, force=True), names))
     for name, (lib, seconds, output) in zip(names, built):
         for line in output.strip().splitlines():
             log(f"[build] {name}: {line}")
         log(f"[build] {name}: {lib.name} in {seconds:.2f} s (nvcc, sm_90a)")
     log(f"[build] all {len(names)} kernel sources in {time.perf_counter() - t0:.2f} s")
+    return {name: output for name, (_, _, output) in zip(names, built)}
+
+
+def cuobjdump_path() -> Path:
+    """``cuobjdump`` beside ``nvcc``, else Triton's copy; fails without one."""
+    found = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if found.exists():
+        return found
+    try:
+        import triton
+    except ImportError:
+        triton = None
+    if triton is not None:
+        found = Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+        if found.exists():
+            return found
+    raise FileNotFoundError("no cuobjdump beside nvcc or in Triton's package")
+
+
+def wgmma_evidence(ptxas: str) -> dict:
+    """The bf16 flash library's SASS counts (wgmma, TMA loads, mbarrier
+    operations) and ptxas's registers and spills for each instance, with the
+    dynamic shared memory of each instance's plan; fails unless the kernel
+    runs on the tensor cores, loads by TMA and spills nothing."""
+    lib, _, _ = _build.build("flash_attention_wgmma")
+    sass = subprocess.run([str(cuobjdump_path()), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "SYNCS")}
+    plans = {p.d_pad: p for p in map(fa.wgmma_plan, fa.HEAD_DIMS)}
+    instances = {}
+    # ptxas -v: the entry's name, then its stack and spills, then its registers
+    for m in re.finditer(r"Compiling entry function '[^']*flash_fwd_wgmmaILi(\d+)ELi(\d+)ELi(\d+)E"
+                         r".*?(\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads.*?Used (\d+) registers", ptxas, re.S):
+        d_pad, block_k, stages, st, ld, regs = map(int, m.groups())
+        instances[f"d_pad={d_pad},block_k={block_k},stages={stages}"] = {
+            "registers": regs, "spill_stores": st, "spill_loads": ld,
+            "dynamic_smem_bytes": plans[d_pad].smem_bytes,
+        }
+    out = {"sass": counts, "ptxas": instances}
+    log(f"[build] flash_attention_wgmma evidence: {json.dumps(out)}")
+    assert counts["HGMMA"] > 0 and counts["UTMALDG"] > 0, "no wgmma or TMA in the bf16 kernel"
+    assert len(instances) == len(plans), f"ptxas reported {len(instances)} instances"
+    assert all(i["spill_stores"] == i["spill_loads"] == 0 for i in instances.values()), "spills"
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +334,7 @@ def flash_case(shape, dtype, device, reps: int) -> dict:
     flops = 4 * D * live_pairs(S, window) * B * H
     bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     out = {
+        "kernel": "flash_attention_wgmma" if dtype == torch.bfloat16 else "flash_attention",
         "shape": {"B": B, "S": S, "H": H, "KH": KH, "D": D, "window": window},
         "dtype": str(dtype).replace("torch.", ""),
         "max_abs_err": err,
@@ -424,9 +490,14 @@ PREFILL_LEN = 32768  # the repo's prefill_32k sequence length, at batch 1
 CHECK_LEN = 4096
 # the launches of one forward: one per layer of each kernel's kind
 FORWARD_LAUNCHES = {
-    "gemma3-1b": {"flash_attention": 26},
-    "zamba2-7b": {"ssd_scan": 68, "flash_attention": 13},
+    "gemma3-1b": {"flash_attention_wgmma": 26},
+    "zamba2-7b": {"ssd_scan": 68, "flash_attention_wgmma": 13},
     "rwkv6-3b": {"rwkv6_scan": 32},
+}
+# at f32 the same layers launch the f32 flash kernel instead
+F32_LAUNCHES = {
+    arch: {("flash_attention" if k == "flash_attention_wgmma" else k): n for k, n in kinds.items()}
+    for arch, kinds in FORWARD_LAUNCHES.items()
 }
 # requests, slots, max_len, prompt lengths, new tokens; an SSM model's first
 # prompt is the prefill prompt's first DECODE_LEN tokens (a chunk length its
@@ -667,30 +738,33 @@ def decode_logits(params, cfg, toks, device):
     return torch.cat(outs, 1)
 
 
-def f32_phase(arch: str, cfg, params, device) -> None:
+def f32_phase(arch: str, cfg, params, device) -> dict:
     """The two logit checks with the same weights upcast to f32: kernel path
     against plain path at S=4096, and decode against the kernel-path forward
     on the first 64 tokens. What the bf16 checks show beyond these gaps is
-    the amplification of bf16 rounding, not the kernels."""
+    the amplification of bf16 rounding, not the kernels. Returns each
+    kernel's launches by path."""
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p32 = tree_map(lambda t: t.float(), params)
     tokens = prompt_tokens(cfg, device)
     short = tokens[:, :CHECK_LEN]
-    expect = FORWARD_LAUNCHES[arch]
-    (k_logits, _), _ = counted_all(f"{arch} f32 prefill S={CHECK_LEN} (kernel)", expect, prefill,
-                                   p32, cfg32, short)
+    expect = F32_LAUNCHES[arch]
+    (k_logits, _), k_counts = counted_all(f"{arch} f32 prefill S={CHECK_LEN} (kernel)", expect,
+                                          prefill, p32, cfg32, short)
     with plain_kernels():
         (p_logits, _), _ = counted_all(f"{arch} f32 prefill S={CHECK_LEN} (plain)", {}, prefill,
                                        p32, cfg32, short)
     logits_close(f"{arch} f32 prefill S={CHECK_LEN} kernel vs plain", k_logits, p_logits,
                  LIMITS[arch]["prefill_f32"], min_top1=1.0)
     toks = tokens[:, :DECODE_LEN]
-    (fwd, _), _ = counted_all(f"{arch} f32 forward S={DECODE_LEN}", expect, forward, p32, cfg32,
-                              toks)
+    (fwd, _), f_counts = counted_all(f"{arch} f32 forward S={DECODE_LEN}", expect, forward, p32,
+                                     cfg32, toks)
     logits_close(f"{arch} f32 decode vs forward", decode_logits(p32, cfg32, toks, device), fwd,
                  LIMITS[arch]["decode_f32"], min_top1=1.0)
     del p32
     torch.cuda.empty_cache()
+    return {name: {f"{arch}:f32_prefill_{CHECK_LEN}": k_counts[name],
+                   f"{arch}:f32_forward_{DECODE_LEN}": f_counts[name]} for name in expect}
 
 
 # ---------------------------------------------------------------------------
@@ -745,12 +819,22 @@ def placement_phase(device) -> int:
     return n
 
 
-def flash_record(timings: list[dict], launches: int, by_path: dict) -> dict:
-    main = timings[0]  # bf16 at the gemma3-1b prefill's sliding-window shape
+FLASH_SOURCES = {
+    "flash_attention_wgmma": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+}
+
+
+def flash_record(name: str, timings: list[dict], launches: int, by_path: dict,
+                 extra: dict | None = None) -> dict:
+    """A flash kernel's record: the bf16 kernel's main timing is the
+    gemma3-1b prefill's sliding-window shape at S=32768, the f32 kernel's
+    the same shape at the S=4096 of its f32 prefill check."""
+    main = timings[0]
     return {
-        "name": "flash_attention",
+        "name": name,
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": FLASH_SOURCES[name],
         "replaces": "src/repro/kernels/flash_attention.py:29",
         "launches": launches,
         "max_abs_err": main["max_abs_err"],
@@ -760,9 +844,11 @@ def flash_record(timings: list[dict], launches: int, by_path: dict) -> dict:
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "shape": main["shape"],
+        "dtype": main["dtype"],
         "tolerance": "bf16 2e-2, f32 2e-4 against the plain version (rtol, and atol as a share "
         "of each output row's root mean square)",
         "limit_ratio": max(t["limit_ratio"] for t in timings),
+        **(extra or {}),
         "launches_by_path": by_path,
         "timings": timings,
     }
@@ -1116,7 +1202,8 @@ def main() -> int:
     card = card_line()
     log(f"[device] {kind} x{count}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(card)
-    build_all()
+    ptxas = build_all()
+    evidence = wgmma_evidence(ptxas["flash_attention_wgmma"])
     flash_timings = flash_phase(device)
     log(f"[time] after flash phase {time.perf_counter() - t_start:.1f} s")
     scan_timings = scan_phase(device)
@@ -1125,13 +1212,13 @@ def main() -> int:
     for arch in FORWARD_LAUNCHES:  # one model on the card at a time
         cfg, params, by_path = prefill_phase(arch, device, card)
         log(f"[time] after {arch} prefill phase {time.perf_counter() - t_start:.1f} s")
-        for paths in (by_path, serving_phase(arch, cfg, params, device, card)):
+        for paths in (by_path, serving_phase(arch, cfg, params, device, card),
+                      f32_phase(arch, cfg, params, device)):
             for name, counts in paths.items():
                 model_paths[name].update(counts)
-        f32_phase(arch, cfg, params, device)
         del params
         torch.cuda.empty_cache()
-        log(f"[time] after {arch} serving phase {time.perf_counter() - t_start:.1f} s")
+        log(f"[time] after {arch} serving and f32 phases {time.perf_counter() - t_start:.1f} s")
     placement_launches = placement_phase(device)
     record, by_path = stream_phase(device, "cuda", "sparse", seeds=(0, 1), n_jobs=8)
     log(f"[time] after stream phase {time.perf_counter() - t_start:.1f} s")
@@ -1142,10 +1229,20 @@ def main() -> int:
     by_path["placement"] = placement_launches
     record["launches_by_path"] = by_path
     # each model kernel's main path is the S=32768 prefill of its model:
-    # gemma3-1b for flash attention, zamba2-7b for SSD, rwkv6-3b for RWKV-6
+    # gemma3-1b for bf16 flash attention, zamba2-7b for SSD, rwkv6-3b for
+    # RWKV-6; the f32 flash kernel's is gemma3-1b's f32 prefill at S=4096
     main_path = f"prefill_{PREFILL_LEN}"
-    flash = flash_record(flash_timings, model_paths["flash_attention"][f"gemma3-1b:{main_path}"],
-                         model_paths["flash_attention"])
+    by_dtype = {d: [t for t in flash_timings if t["dtype"] == d] for d in ("bfloat16", "float32")}
+    f32 = sorted(by_dtype["float32"], key=lambda t: (  # the f32 prefill's windowed shape first
+        t["shape"]["S"], t["shape"]["D"], t["shape"]["window"]) != (CHECK_LEN, 256, 512))
+    flashes = [
+        flash_record("flash_attention_wgmma", by_dtype["bfloat16"],
+                     model_paths["flash_attention_wgmma"][f"gemma3-1b:{main_path}"],
+                     model_paths["flash_attention_wgmma"], evidence),
+        flash_record("flash_attention", f32,
+                     model_paths["flash_attention"][f"gemma3-1b:f32_prefill_{CHECK_LEN}"],
+                     model_paths["flash_attention"]),
+    ]
     scans = [
         scan_record(name, scan_timings[name], model_paths[name][f"{arch}:{main_path}"],
                     model_paths[name])
@@ -1153,7 +1250,7 @@ def main() -> int:
     ]
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")
     log(card)
-    log(json.dumps({"kernels": [record, flash, *scans]}))
+    log(json.dumps({"kernels": [record, *flashes, *scans]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

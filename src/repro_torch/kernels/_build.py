@@ -49,13 +49,15 @@ def _target(name: str) -> tuple[Path, Path]:
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(name: str, *, ptxas_verbose: bool = False) -> tuple[Path, float, str]:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
-    Returns ``(library path, build seconds, compiler output)``; the seconds
-    are 0 and the output empty when the library was already there. Raises
-    ``RuntimeError`` with nvcc's output when the build fails."""
+def build(
+    name: str, *, ptxas_verbose: bool = False, force: bool = False
+) -> tuple[Path, float, str]:
+    """Compile ``csrc/<name>.cu`` unless its library is already built (or
+    ``force``). Returns ``(library path, build seconds, compiler output)``;
+    the seconds are 0 and the output empty when the library was already
+    there. Raises ``RuntimeError`` with nvcc's output when the build fails."""
     src, lib = _target(name)
-    if lib.exists():
+    if lib.exists() and not force:
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")

@@ -1,4 +1,6 @@
-// Causal GQA flash attention (forward), with an optional sliding window.
+// Causal GQA flash attention (forward) in f32 on the CUDA cores, with an
+// optional sliding window: the exact path, for f32 tensors. bf16 tensors go
+// to csrc/flash_attention_wgmma.cu, on the tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 // (_flash_kernel, launched by flash_attention_hsd through pl.pallas_call).
@@ -7,38 +9,37 @@
 // scratch that persists across kv steps, and skipped tiles outside the
 // causal/window band with pl.when.
 //
-// Layout: q (B, H, S, D), k and v (B, KH, S, D), o (B, H, S, D) in q's type,
-// all contiguous; bf16 or f32 in, f32 products and softmax. kv head h/(H/KH).
+// Layout: q (B, H, S, D), k and v (B, KH, S, D), o (B, H, S, D), all f32 and
+// contiguous; f32 products and softmax. kv head h/(H/KH).
 // Mask: pos_k <= pos_q, and pos_k > pos_q - window when window > 0, with a
 // -1e30 sentinel (never -inf, so a row whose first tile is fully masked gives
 // no NaN); each row ends divided by max(l, 1e-30). Any S: ragged edges are
 // masked. Sq == Skv only (the wrapper enforces it).
 //
-// What bounds it on Hopper: operations. A (q, k) pair costs 4*D flops for
-// 2*D*dtype bytes of k and v that a q-tile of 64 rows shares, so the kernel
-// does ~64 flops per byte it loads, far above the card's balance point for
-// f32 arithmetic outside the tensor cores. This first version keeps every
-// product in f32 on the CUDA cores (exact for bf16 operands, and the same
-// code for f32 inputs), so its ceiling is the 67 TFLOP/s f32 rate, not the
-// 989 TFLOP/s of the bf16 tensor cores; a wgmma/TMA version is later work.
-// The design answers the bound it has:
+// Why f32 stays on the CUDA cores: TF32 on the tensor cores keeps about three
+// decimal digits, and this path is the exact yardstick the f32 model checks
+// hold to a few 1e-7 of the largest logit. What bounds it on Hopper:
+// operations. A (q, k) pair costs 4*D flops for 8*D bytes of k and v that a
+// q-tile of 64 rows shares, so the kernel does ~32 flops per byte it loads,
+// far above the card's balance point for f32 arithmetic outside the tensor
+// cores; its ceiling is the 67 TFLOP/s f32 rate. The design answers the
+// bound it has:
 //   * one block of 256 threads per (q-tile of 64 rows, head, batch); heavy
 //     (late, long-causal) tiles are scheduled first;
 //   * a loop inside the block over only the 64-key tiles that meet the
 //     causal/window band replaces the TPU's sequential kv grid axis and its
 //     pl.when skip;
-//   * Q (pre-scaled by D^-0.5 in f32, as the TPU kernel scales it) and K are
-//     staged transposed in shared memory as f32, so each thread's 4x4 block
-//     of scores reads one float4 of q and one of k per d and issues 16 FMAs;
+//   * Q (pre-scaled by D^-0.5, as the TPU kernel scales it) and K are staged
+//     transposed in shared memory, so each thread's 4x4 block of scores
+//     reads one float4 of q and one of k per d and issues 16 FMAs;
 //   * the running m, l and a 4 x D/16 slice of acc stay in registers; the
 //     row max and row sum reduce over the 16 threads of a row group with
 //     warp shuffles; P goes through shared memory once per tile for P.V;
 //   * products are explicit fmaf, so the repository's -fmad=false flag
 //     (kept for the JRBA kernel's bit identity) does not split them.
-// At D = 256 the f32 tiles take 217 KB of shared memory, above the static
+// At D = 256 the tiles take 217 KB of shared memory, above the static
 // 48 KB: the launcher raises the block's dynamic shared-memory limit.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -52,20 +53,15 @@ constexpr float NEG_INF = -1e30f;
 
 static_assert(BQ == BK, "the transposed tiles share one row stride");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
 template <int D>
 constexpr size_t smem_floats() {
   return 2 * (size_t)D * TS + (size_t)BK * D + (size_t)BK * TS;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int H, int KH, int S, int window, float scale) {
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+          float* __restrict__ o, int H, int KH, int S, int window, float scale) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int DC = D / 16;  // output columns of one thread
   extern __shared__ __align__(16) float smem[];
@@ -84,7 +80,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    qT[d * TS + r] = q0 + r < S ? to_f32(q[qbase + (size_t)(q0 + r) * D + d]) * scale : 0.f;
+    qT[d * TS + r] = q0 + r < S ? q[qbase + (size_t)(q0 + r) * D + d] * scale : 0.f;
   }
 
   float m[4], l[4], acc[4][DC];
@@ -104,8 +100,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       const int c = i / D, d = i % D;
       const bool in = k0 + c < S;
       const size_t off = kbase + (size_t)(k0 + c) * D + d;
-      kT[d * TS + c] = in ? to_f32(k[off]) : 0.f;
-      vs[c * D + d] = in ? to_f32(v[off]) : 0.f;
+      kT[d * TS + c] = in ? k[off] : 0.f;
+      vs[c * D + d] = in ? v[off] : 0.f;
     }
     __syncthreads();
 
@@ -183,50 +179,47 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const int pq = q0 + 4 * ty + i;
     if (pq >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* row = o + qbase + (size_t)pq * D;
+    float* row = o + qbase + (size_t)pq * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) store(row + tx + 16 * c, acc[i][c] / denom);
+    for (int c = 0; c < DC; ++c) row[tx + 16 * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KH, int S,
            int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, KH, S, window, scale);
+  flash_fwd<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), H, KH, S, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(int D, const void* q, const void* k, const void* v, void* o, int B, int H, int KH,
              int S, int window, float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, KH, S, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, KH, S, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, KH, S, window, scale, stream);
-    case 96: return launch<T, 96>(q, k, v, o, B, H, KH, S, window, scale, stream);
-    case 112: return launch<T, 112>(q, k, v, o, B, H, KH, S, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, KH, S, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, H, KH, S, window, scale, stream);
+    case 16: return launch<16>(q, k, v, o, B, H, KH, S, window, scale, stream);
+    case 32: return launch<32>(q, k, v, o, B, H, KH, S, window, scale, stream);
+    case 64: return launch<64>(q, k, v, o, B, H, KH, S, window, scale, stream);
+    case 96: return launch<96>(q, k, v, o, B, H, KH, S, window, scale, stream);
+    case 112: return launch<112>(q, k, v, o, B, H, KH, S, window, scale, stream);
+    case 128: return launch<128>(q, k, v, o, B, H, KH, S, window, scale, stream);
+    case 256: return launch<256>(q, k, v, o, B, H, KH, S, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Returns the launch's cudaGetLastError() code (0 on success). is_bf16
-// selects bf16 tensors, otherwise f32. Does not synchronise.
+// Returns the launch's cudaGetLastError() code (0 on success); f32 tensors
+// only. Does not synchronise.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int H, int KH, int S, int D, int window,
-                                      float scale, int is_bf16, void* stream) {
+                                      float scale, void* stream) {
   if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || S < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, o, B, H, KH, S, window, scale, s)
-                 : dispatch<float>(D, q, k, v, o, B, H, KH, S, window, scale, s);
+  return dispatch(D, q, k, v, o, B, H, KH, S, window, scale, static_cast<cudaStream_t>(stream));
 }

@@ -1,21 +1,32 @@
-"""Causal GQA flash attention: the CUDA kernel's wrapper and its plain version.
+"""Causal GQA flash attention: the two CUDA kernels' wrapper and their plain version.
 
 :func:`flash_attention_hsd` takes heads-major q ``(B, H, S, D)`` and k/v
 ``(B, KH, S, D)`` and returns ``(B, H, S, D)`` in q's dtype: causal
 attention with an optional sliding window (``pos_k > pos_q - window``), kv
-head ``h // (H // KH)``, products and softmax in f32.
+head ``h // (H // KH)``, softmax in f32.
 
-On a CUDA tensor it launches ``csrc/flash_attention.cu`` once (counted in
-``flash_attention_hsd.launches``) and raises on any input the kernel does not
-take. On a CPU tensor it runs the plain version, :func:`blockwise_attention`,
-the online-softmax twin that the JAX model runs where the TPU would run the
-kernel. The kernel replaces the TPU kernel ``_flash_kernel`` /
-``flash_attention_hsd`` of the JAX package; its source note says what bounds
-it on Hopper and how the design answers that.
+On a CUDA tensor it launches one kernel, by dtype, and raises on any input
+the kernels do not take:
+
+- bf16: ``csrc/flash_attention_wgmma.cu`` (:func:`flash_attention_wgmma`),
+  both products on the tensor cores with bf16 operands and f32 sums, P
+  rounded to bf16 for P.V, tiles loaded by TMA. Its host-side plan (padded
+  head dim, box sizes, stages, shared memory, grid) is :func:`wgmma_plan`.
+- f32: ``csrc/flash_attention.cu`` (:func:`flash_attention_f32`), exact f32
+  products on the CUDA cores: the yardstick of the f32 model checks.
+
+Each launcher counts its own launches (``.launches``), and
+``flash_attention_hsd.launches`` counts both. On a CPU tensor the wrapper runs
+the plain version, :func:`blockwise_attention`, the online-softmax twin that
+the JAX model runs where the TPU would run the kernel. Both kernels replace
+the TPU kernel ``_flash_kernel`` / ``flash_attention_hsd`` of the JAX
+package; their source notes say what bounds them on Hopper and how the
+designs answer that.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -23,15 +34,64 @@ from . import _build
 
 __all__ = [
     "HEAD_DIMS",
+    "WgmmaPlan",
     "blockwise_attention",
+    "flash_attention_f32",
     "flash_attention_hsd",
     "flash_attention_plain",
+    "flash_attention_wgmma",
+    "wgmma_plan",
 ]
 
-LIBRARY = "flash_attention"
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)  # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)  # the head dims both kernels take
 DTYPES = (torch.bfloat16, torch.float32)
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on the H100
+BLOCK_Q = 128  # query rows of a wgmma CTA: two consumer warpgroups of 64
+BOX_COLS = 64  # bf16 columns of one 128-byte swizzled TMA box
+
+
+@dataclasses.dataclass(frozen=True)
+class WgmmaPlan:
+    """Host-side plan of one bf16 kernel launch; the launcher checks it
+    against the compiled instance (``csrc/flash_attention_wgmma.cu``,
+    ``Layout``)."""
+
+    head_dim: int
+    d_pad: int  # head dim padded to whole 64-column boxes (zero columns)
+    block_k: int  # keys of a K/V tile
+    stages: int  # K/V slots in the ring
+
+    @property
+    def box_q(self) -> tuple[int, int]:
+        """(columns, rows) of one Q box; ``d_pad // BOX_COLS`` boxes a tile."""
+        return BOX_COLS, BLOCK_Q
+
+    @property
+    def box_kv(self) -> tuple[int, int]:
+        return BOX_COLS, self.block_k
+
+    @property
+    def smem_bytes(self) -> int:
+        """Q, the K and V ring, the mbarriers (q, and k full, v full, empty
+        per slot) and 1024 bytes of slack to align the swizzled tiles."""
+        q = BLOCK_Q * self.d_pad * 2
+        kv = 2 * self.stages * self.block_k * self.d_pad * 2
+        return 1024 + q + kv + 8 * (1 + 3 * self.stages)
+
+    def grid(self, B: int, H: int, S: int) -> int:
+        """CTAs: one per (128-row q tile, head, batch)."""
+        return -(-S // BLOCK_Q) * H * B
+
+
+def wgmma_plan(D: int) -> WgmmaPlan:
+    """The bf16 kernel's plan for head dim ``D``: 64-key tiles at D=256 (the
+    f32 accumulator of 64 x 256 takes 128 registers a thread), 128-key tiles
+    below; two slots each."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D}; the kernels are built for {HEAD_DIMS}")
+    d_pad = -(-D // BOX_COLS) * BOX_COLS
+    return WgmmaPlan(head_dim=D, d_pad=d_pad, block_k=64 if d_pad == 256 else 128, stages=2)
 
 
 @torch.no_grad()
@@ -106,14 +166,49 @@ def _check(name: str, x: torch.Tensor, like: torch.Tensor, shape: tuple) -> None
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launcher():
-    fn = _build.load(LIBRARY).flash_attention_launch
+def _library(name: str, argtypes: list):
+    fn = getattr(_build.load(name), f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def _stream(q: torch.Tensor) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def flash_attention_wgmma(q, k, v, out, *, window: int) -> None:
+    """Launch ``csrc/flash_attention_wgmma.cu`` on checked bf16 CUDA tensors,
+    writing ``out``; counts its launches."""
+    B, H, S, D = q.shape
+    plan = wgmma_plan(D)
+    fn = _library("flash_attention_wgmma", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, k.shape[1], S, D, int(window), D**-0.5,
+            plan.d_pad, plan.block_k, plan.stages, plan.smem_bytes, plan.grid(B, H, S),
+            _stream(q),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_wgmma launch failed: error {err}")
+    flash_attention_wgmma.launches += 1
+
+
+def flash_attention_f32(q, k, v, out, *, window: int) -> None:
+    """Launch ``csrc/flash_attention.cu`` on checked f32 CUDA tensors,
+    writing ``out``; counts its launches."""
+    B, H, S, D = q.shape
+    fn = _library("flash_attention", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, H, k.shape[1], S, D, int(window), D**-0.5, _stream(q))
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    flash_attention_f32.launches += 1
 
 
 @torch.no_grad()
@@ -126,9 +221,9 @@ def flash_attention_hsd(
     chunk: int = 1024,
 ) -> torch.Tensor:
     """Causal (sliding-window when ``window > 0``) GQA attention, heads-major,
-    scaled by ``D**-0.5``. A CUDA ``q`` launches the kernel; a CPU one runs
-    the plain version with tiles of ``chunk`` (which must divide S; the
-    kernel ignores it)."""
+    scaled by ``D**-0.5``. A CUDA ``q`` launches the bf16 or the f32 kernel;
+    a CPU one runs the plain version with tiles of ``chunk`` (which must
+    divide S; the kernels ignore it)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be 4-D, got {tuple(q.shape)} and {tuple(k.shape)}")
     B, H, S, D = q.shape
@@ -144,25 +239,27 @@ def flash_attention_hsd(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in DTYPES:
-        raise TypeError(f"q has dtype {q.dtype}; the kernel takes {DTYPES}")
+        raise TypeError(f"q has dtype {q.dtype}; the kernels take {DTYPES}")
     _check("q", q, q, (B, H, S, D))
     _check("k", k, q, (B, KH, S, D))
     _check("v", v, q, (B, KH, S, D))
     if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D}; the kernel is built for {HEAD_DIMS}")
+        raise ValueError(f"head dim {D}; the kernels are built for {HEAD_DIMS}")
     if window < 0:
         raise ValueError(f"window {window} < 0")
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _launcher()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, KH, S, D, int(window), D**-0.5, int(q.dtype == torch.bfloat16), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    if q.dtype == torch.bfloat16:
+        # TMA reads each tensor from its base address: 16-byte alignment
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} is not 16-byte aligned")
+        flash_attention_wgmma(q, k, v, out, window=window)
+    else:
+        flash_attention_f32(q, k, v, out, window=window)
     flash_attention_hsd.launches += 1
     return out
 
 
-flash_attention_hsd.launches = 0
+flash_attention_hsd.launches = 0  # both kernels
+flash_attention_wgmma.launches = 0
+flash_attention_f32.launches = 0

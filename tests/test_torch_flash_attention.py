@@ -2,16 +2,24 @@
 package's, on the CPU: ``ops.flash_attention`` runs its plain version here
 (``blockwise_attention``), held against the Pallas kernel in interpret mode and
 against the dense oracle over ``tests/test_kernels.py``'s cases, with that
-file's tolerances. Inputs are made with numpy from a seed."""
+file's tolerances. The bf16 kernel's arithmetic (P rounded to bf16 for P.V) is
+emulated here and held to the same references and to the JAX model's logits;
+its host-side plan is checked for every head dim. Inputs are made with numpy
+from a seed."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from test_kernels import ATTN_CASES
+from test_torch_models import _pair, _tokens, bf16_tol
 
+import repro.models as jm
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
+import repro_torch.models as tm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as tattn
@@ -104,3 +112,97 @@ def test_attention_limit_scales_with_each_row():
     late[..., S - 256 :, :] += 0.03 * rms[..., S - 256 :, :]
     torch.testing.assert_close(late, want, rtol=2e-2, atol=2e-2)
     assert ref.row_limit_ratio(late, want, 2e-2) > 1.0
+
+
+def wgmma_emulation(q, k, v, *, window=0):
+    """The bf16 kernel's arithmetic (``csrc/flash_attention_wgmma.cu``) in
+    the heads-major layout: bf16 operands with f32 sums, the scale applied to
+    the f32 scores (in base 2, as the kernel's exp2), an online softmax over
+    kv tiles of the plan's ``block_k`` keys with the -1e30 sentinel, l summed
+    from the f32 P, and P rounded to bf16 before P.V."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    bk = fa.wgmma_plan(D).block_k
+    c = D**-0.5 * math.log2(math.e)
+    qf = q.float()
+    kf, vf = (x.repeat_interleave(G, dim=1).float() for x in (k, v))
+    pos = torch.arange(S)
+    m = torch.full((B, H, S), fa.NEG_INF)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, D))
+    for k0 in range(0, S, bk):
+        u = qf @ kf[:, :, k0 : k0 + bk].transpose(-1, -2) * c
+        pk = pos[k0 : k0 + bk]
+        live = pk[None, :] <= pos[:, None]
+        if window > 0:
+            live &= pk[None, :] > pos[:, None] - window
+        u = torch.where(live, u, fa.NEG_INF)
+        m_new = torch.maximum(m, u.amax(-1))
+        p = torch.exp2(u - m_new[..., None])
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + p.bfloat16().float() @ vf[:, :, k0 : k0 + bk]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def _emulated_attention(q, k, v, *, window=0, chunk=1024):
+    """:func:`wgmma_emulation` in the model layout, as ``ops.flash_attention``."""
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    return t(wgmma_emulation(t(q), t(k), t(v), window=window))
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_wgmma_arithmetic_matches_pallas_and_oracle(case):
+    """P in bf16 for P.V fits the bf16 tolerance the card holds the kernel to."""
+    B, S, H, KH, D, window, bq, bk = case
+    (q, k, v), (tq, tk, tv) = _inputs(
+        sum(case), [(B, S, H, D), (B, S, KH, D), (B, S, KH, D)], "bfloat16"
+    )
+    got = _emulated_attention(tq, tk, tv, window=window)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, S, H, D)
+    pallas = jops.flash_attention(
+        q, k, v, causal=True, window=window, block_q=bq, block_k=bk, interpret=True
+    )
+    t = lambda x: x.transpose(0, 2, 1, 3)  # noqa: E731
+    oracle = t(jref.flash_attention_ref(t(q), t(k), t(v), causal=True, window=window))
+    np.testing.assert_allclose(_np(got), _np(pallas), **tol("bfloat16"))
+    np.testing.assert_allclose(_np(got), _np(oracle), **tol("bfloat16"))
+
+
+def test_wgmma_arithmetic_in_gemma3_forward(monkeypatch):
+    """The emulated kernel in place of the attention of the gemma3-1b smoke
+    forward (global and sliding-window layers) keeps the logits within the
+    bound the bf16 forward is held to against the JAX package."""
+    jc, tc, jp, tp = _pair("gemma3-1b-smoke", "bfloat16")
+    tok = _tokens(jc)
+    want = np.asarray(jm.forward(jp, jc, jnp.asarray(tok))[0])
+    monkeypatch.setattr(tattn, "flash_attention", _emulated_attention)
+    got, _ = tm.forward(tp, tc, torch.from_numpy(tok).long())
+    np.testing.assert_allclose(got.numpy(), want, **bf16_tol(want))
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_wgmma_plan_fits_every_head_dim(D):
+    """Every head dim gets a plan: whole 128-byte swizzled boxes of 64 bf16
+    columns, a kv tile the wgmma shapes take, a ring that fits the block's
+    shared memory, and one CTA per (128-row q tile, head, batch)."""
+    plan = fa.wgmma_plan(D)
+    assert plan.head_dim == D and plan.d_pad >= D and plan.d_pad % fa.BOX_COLS == 0
+    assert plan.d_pad - D < fa.BOX_COLS
+    assert plan.box_q == (64, 128) and plan.box_kv == (64, plan.block_k)
+    assert plan.box_q[0] * 2 == 128  # bytes: the swizzle's span
+    assert plan.block_k in (64, 128) and plan.stages >= 2
+    # f32 accumulators a consumer thread holds: O (64 x d_pad) and S (64 x block_k)
+    assert (plan.d_pad + plan.block_k) // 2 <= 192
+    assert plan.smem_bytes <= fa.SMEM_LIMIT
+    q_tile = fa.BLOCK_Q * plan.d_pad * 2
+    assert plan.smem_bytes >= q_tile + 2 * plan.stages * plan.block_k * plan.d_pad * 2
+    for B, H, S in ((1, 4, 1), (2, 8, 77), (1, 32, 1000), (1, 4, 32768)):
+        assert plan.grid(B, H, S) == math.ceil(S / 128) * H * B
+
+
+def test_wgmma_plan_rejects_other_head_dims():
+    for D in (8, 48, 80, 192, 512):
+        with pytest.raises(ValueError, match="head dim"):
+            fa.wgmma_plan(D)

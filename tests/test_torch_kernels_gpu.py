@@ -124,9 +124,16 @@ FLASH_CASES = [
     (1, 200, 4, 2, 16, 0), (1, 333, 4, 1, 256, 100),
     (1, 1024, 4, 1, 256, 512), (1, 1024, 16, 8, 128, 0),
     (1, 256, 32, 32, 112, 0), (1, 300, 4, 4, 112, 0),  # zamba2-7b's shared attention
+    # every head dim again at a ragged S (not a multiple of 64 or 128), B=2,
+    # GQA 4:1 and 1:1, windows that are no multiple of a kv tile
+    (2, 77, 4, 1, 16, 0), (2, 1000, 4, 4, 32, 200), (2, 1000, 8, 2, 64, 0),
+    (2, 77, 4, 4, 96, 33), (2, 1000, 4, 4, 112, 0), (2, 1000, 8, 2, 128, 300),
+    (2, 1000, 4, 1, 256, 0), (2, 77, 4, 1, 256, 50),
 ]
 # tests/test_kernels.py's tolerances, each row held to them at its own scale
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+# the kernel each dtype launches: bf16 on the tensor cores, f32 on the CUDA cores
+FLASH_KERNEL = {torch.bfloat16: fa.flash_attention_wgmma, torch.float32: fa.flash_attention_f32}
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
@@ -139,10 +146,13 @@ def test_flash_kernel_matches_plain(case, dtype):
         torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
         for s in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D))
     )
-    before = fa.flash_attention_hsd.launches
+    kernels = (fa.flash_attention_wgmma, fa.flash_attention_f32)
+    before = fa.flash_attention_hsd.launches, [kern.launches for kern in kernels]
     got = fa.flash_attention_hsd(q, k, v, window=window)
     torch.cuda.synchronize()
-    assert fa.flash_attention_hsd.launches == before + 1
+    assert fa.flash_attention_hsd.launches == before[0] + 1
+    for kern, n in zip(kernels, before[1]):
+        assert kern.launches == n + (kern is FLASH_KERNEL[dtype])
     chunk = 64 if S % 64 == 0 else S
     want = fa.flash_attention_plain(q, k, v, window=window, chunk=chunk)
     assert got.dtype == dtype and bool(torch.isfinite(got).all())
