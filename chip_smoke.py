@@ -10,10 +10,13 @@ Phases, in the order they run, each failing hard:
 1. Device: the card's name, count and power limit. No card, no run.
 2. Build: every kernel under ``src/repro_torch/kernels/csrc`` is compiled
    with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
-   together (``-Xptxas -v`` shown). The bf16 flash library is disassembled
-   (``cuobjdump -sass``, beside ``nvcc`` or Triton's copy): it must hold
-   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions, and ptxas must
-   report no spills in it.
+   together (``-Xptxas -v`` shown). Three libraries are disassembled
+   (``cuobjdump -sass``, beside ``nvcc`` or Triton's copy): the bf16 flash
+   library must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+   instructions, the bf16 SSD library ``HMMA`` (mma.sync) and ``LDGSTS``
+   (cp.async) ones, each with no ptxas spills; the JRBA library must hold no
+   ``LDL``/``STL`` (local memory) and every kernel of it a 0-byte stack
+   frame.
 3. Flash attention against plain: the two CUDA kernels (bf16 on the tensor
    cores, ``flash_attention_wgmma.cu``; f32 on the CUDA cores,
    ``flash_attention.cu``) against their plain version
@@ -26,7 +29,9 @@ Phases, in the order they run, each failing hard:
    types, S=32768 in bf16). Kernel, plain version and
    ``scaled_dot_product_attention`` (the library yardstick, never on the
    port's path) are timed with CUDA events.
-4. Scans against plain: the SSD and RWKV-6 kernels, through the model-layout
+4. Scans against plain: the SSD kernels (bf16 on the tensor cores,
+   ``ssd_scan_mma.cu``; f32 on the CUDA cores, ``ssd_scan.cu``) and the
+   RWKV-6 kernel, through the model-layout
    wrappers, against their chunked plain versions at zamba2-7b's (H=112,
    P=N=64, chunk 64) and rwkv6-3b's (H=40, P=64, chunk 16) heads at S=32768
    and 4096, then at ``tests/test_kernels.py``'s cases (also against the
@@ -38,8 +43,9 @@ Phases, in the order they run, each failing hard:
    the port's seeded init and freed before the next: ``prefill`` at B=1,
    S=32768 (the prefill_32k length): time, tokens/s, peak memory, and
    exactly one launch per layer of each kernel's kind (gemma3-1b: 26 bf16
-   flash; zamba2-7b: 68 SSD and 13 bf16 flash; rwkv6-3b: 32 RWKV-6; the f32
-   checks of each model the same counts, with flash on the f32 kernel). At
+   flash; zamba2-7b: 68 bf16 SSD and 13 bf16 flash; rwkv6-3b: 32 RWKV-6; the
+   f32 checks of each model the same counts, with flash and SSD on their f32
+   kernels). At
    S=4096 the
    last-position logits through the kernels and through their plain versions
    must agree within the model's limit (a share of the largest logit, 2-4x
@@ -64,7 +70,10 @@ Phases, in the order they run, each failing hard:
    Rounded routes, bandwidths and spans must be identical, relaxed spans
    within rtol 5e-2. The kernel and the plain version are timed with CUDA
    events on batches from that stream, where ``w``, spans and step counts
-   must agree bit for bit.
+   must agree bit for bit; beside each time stand the batch's slowest lane's
+   steps, the time per step, and the latency floor: those steps times one
+   step's minimum dependent chain, timed by the source's one-warp
+   microbenchmark (``jrba_congestion.step_floor_ms``).
 9. Fleet: a 256-lane async-built fleet (the fleet families plus
    ``wan-mesh-xl`` and ``edge-mesh-flash``, drift churn on every 4th lane,
    ``n_jobs=4``, ``n_iters=250``) runs under the lockstep and the async
@@ -78,13 +87,14 @@ it and read just after; a kernel a path is not expected to launch must show
 ``solver="cuda"`` (the placement, the scheduler, the single and batched
 replays, each fleet run) must have launched it, each on ``solver="sparse"``
 or the CPU must not have. Each model kernel's main path is the S=32768
-prefill of its model (bf16 flash attention: gemma3-1b's, 26 launches; SSD:
-zamba2-7b's, 68; RWKV-6: rwkv6-3b's, 32); the S=4096 prefills and
+prefill of its model (bf16 flash attention: gemma3-1b's, 26 launches; bf16
+SSD: zamba2-7b's, 68; RWKV-6: rwkv6-3b's, 32); the S=4096 prefills and
 ``forward`` launch them once per layer, the plain reference runs and the
 serving loops (whose decode is plain PyTorch) not at all. The f32 flash
-kernel's path is gemma3-1b's f32 prefill at S=4096 (26 launches).
-``flash_attention_hsd.launches`` counts both flash kernels and must equal
-their sum on every path.
+kernel's path is gemma3-1b's f32 prefill at S=4096 (26 launches), the f32
+SSD kernel's zamba2-7b's (68). ``flash_attention_hsd.launches`` counts both
+flash kernels and ``ssd_scan_hsd.launches`` both SSD kernels, and each must
+equal their sum on every path.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -94,6 +104,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -152,10 +163,15 @@ COUNTERS = {
     "jrba_congestion": jc.sparse_congestion_solve,
     "flash_attention_wgmma": fa.flash_attention_wgmma,  # bf16, tensor cores
     "flash_attention": fa.flash_attention_f32,  # f32, CUDA cores
-    "ssd_scan": ssd.ssd_scan_hsd,
+    "ssd_scan_mma": ssd.ssd_scan_mma,  # bf16, tensor cores
+    "ssd_scan": ssd.ssd_scan_f32,  # f32, CUDA cores
     "rwkv6_scan": rw.rwkv6_scan_hsd,
 }
-FLASH_KERNELS = ("flash_attention_wgmma", "flash_attention")
+# each dtype-routing wrapper's count is the sum of its kernels' counts
+ROUTED = {
+    fa.flash_attention_hsd: ("flash_attention_wgmma", "flash_attention"),
+    ssd.ssd_scan_hsd: ("ssd_scan_mma", "ssd_scan"),
+}
 
 
 def counted_all(label: str, expect: dict, fn, *args, **kwargs):
@@ -163,17 +179,17 @@ def counted_all(label: str, expect: dict, fn, *args, **kwargs):
     it and read just after; returns ``(result, {kernel: launches})``.
     ``expect`` maps a kernel to True (must have launched), or to the exact
     count it must show; kernels it does not name must show 0."""
-    for wrapper in (*COUNTERS.values(), fa.flash_attention_hsd):
+    for wrapper in (*COUNTERS.values(), *ROUTED):
         wrapper.launches = 0
     out = fn(*args, **kwargs)
     torch.cuda.synchronize()
     counts = {name: wrapper.launches for name, wrapper in COUNTERS.items()}
     log(f"[launches] {label}: {json.dumps(counts)}")
-    flash = sum(counts[name] for name in FLASH_KERNELS)
-    assert fa.flash_attention_hsd.launches == flash, (
-        f"{label}: flash_attention_hsd counted {fa.flash_attention_hsd.launches}, "
-        f"its kernels {flash}"
-    )
+    for wrapper, names in ROUTED.items():
+        total = sum(counts[name] for name in names)
+        assert wrapper.launches == total, (
+            f"{label}: {wrapper.__name__} counted {wrapper.launches}, its kernels {total}"
+        )
     for name, n in counts.items():
         want = expect.get(name, 0)
         if want is True:
@@ -227,31 +243,85 @@ def cuobjdump_path() -> Path:
     raise FileNotFoundError("no cuobjdump beside nvcc or in Triton's package")
 
 
+def ptxas_entries(ptxas: str, pattern: str = "") -> list[dict]:
+    """ptxas -v's report of each kernel entry whose mangled name holds
+    ``pattern``: its name, stack frame, spill stores and loads, and
+    registers."""
+    out = []
+    for m in re.finditer(r"Compiling entry function '([^']*)'.*?(\d+) bytes stack frame, "
+                         r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+                         r"Used (\d+) registers", ptxas, re.S):
+        name, stack, st, ld, regs = m.group(1), *map(int, m.groups()[1:])
+        if pattern in name:
+            out.append({"entry": name, "stack_frame": stack, "spill_stores": st,
+                        "spill_loads": ld, "registers": regs})
+    return out
+
+
+def sass_counts(name: str, ops: tuple) -> dict:
+    """How often each SASS opcode in ``ops`` appears in the library's
+    disassembly (``LDL`` counts ``LDL.64`` and the like)."""
+    lib, _, _ = _build.build(name)
+    sass = subprocess.run([str(cuobjdump_path()), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+
+
 def wgmma_evidence(ptxas: str) -> dict:
     """The bf16 flash library's SASS counts (wgmma, TMA loads, mbarrier
     operations) and ptxas's registers and spills for each instance, with the
     dynamic shared memory of each instance's plan; fails unless the kernel
     runs on the tensor cores, loads by TMA and spills nothing."""
-    lib, _, _ = _build.build("flash_attention_wgmma")
-    sass = subprocess.run([str(cuobjdump_path()), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
-    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "SYNCS")}
+    counts = sass_counts("flash_attention_wgmma", ("HGMMA", "UTMALDG", "SYNCS"))
     plans = {p.d_pad: p for p in map(fa.wgmma_plan, fa.HEAD_DIMS)}
     instances = {}
-    # ptxas -v: the entry's name, then its stack and spills, then its registers
-    for m in re.finditer(r"Compiling entry function '[^']*flash_fwd_wgmmaILi(\d+)ELi(\d+)ELi(\d+)E"
-                         r".*?(\d+) bytes spill stores, "
-                         r"(\d+) bytes spill loads.*?Used (\d+) registers", ptxas, re.S):
-        d_pad, block_k, stages, st, ld, regs = map(int, m.groups())
+    for e in ptxas_entries(ptxas, "flash_fwd_wgmma"):
+        d_pad, block_k, stages = map(int, re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E",
+                                                    e["entry"]).groups())
         instances[f"d_pad={d_pad},block_k={block_k},stages={stages}"] = {
-            "registers": regs, "spill_stores": st, "spill_loads": ld,
-            "dynamic_smem_bytes": plans[d_pad].smem_bytes,
+            "registers": e["registers"], "spill_stores": e["spill_stores"],
+            "spill_loads": e["spill_loads"], "dynamic_smem_bytes": plans[d_pad].smem_bytes,
         }
     out = {"sass": counts, "ptxas": instances}
     log(f"[build] flash_attention_wgmma evidence: {json.dumps(out)}")
     assert counts["HGMMA"] > 0 and counts["UTMALDG"] > 0, "no wgmma or TMA in the bf16 kernel"
     assert len(instances) == len(plans), f"ptxas reported {len(instances)} instances"
     assert all(i["spill_stores"] == i["spill_loads"] == 0 for i in instances.values()), "spills"
+    return out
+
+
+def ssd_mma_evidence(ptxas: str) -> dict:
+    """The bf16 SSD library's SASS counts (mma.sync, cp.async, ldmatrix,
+    barriers) and ptxas's registers and spills for each (chunk, block
+    columns) instance, 16 and 32 value columns at each chunk; fails unless it
+    runs on the tensor cores, loads by cp.async and spills nothing."""
+    counts = sass_counts("ssd_scan_mma", ("HMMA", "LDGSTS", "LDSM", "BAR", "LDL", "STL"))
+    instances = {}
+    for e in ptxas_entries(ptxas, "ssd_scan_mma_kernel"):
+        q, pb = map(int, re.search(r"ILi(\d+)ELi(\d+)E", e["entry"]).groups())
+        instances[f"Q={q},PB={pb}"] = {k: e[k] for k in
+                                       ("registers", "spill_stores", "spill_loads", "stack_frame")}
+    out = {"sass": counts, "ptxas": instances}
+    log(f"[build] ssd_scan_mma evidence: {json.dumps(out)}")
+    assert counts["HMMA"] > 0 and counts["LDGSTS"] > 0, "no mma.sync or cp.async in the SSD kernel"
+    assert set(instances) == {f"Q={q},PB={pb}" for q in ssd.CHUNKS for pb in (16, 32)}, (
+        f"ptxas reported instances {sorted(instances)}")
+    assert all(i["spill_stores"] == i["spill_loads"] == 0 for i in instances.values()), "spills"
+    return out
+
+
+def jrba_evidence(ptxas: str) -> dict:
+    """The JRBA library's local-memory instructions (none allowed) and each
+    kernel instance's stack frame (0 bytes required), registers and spills."""
+    counts = sass_counts("jrba_congestion", ("LDL", "STL", "LDS", "SHFL", "BAR"))
+    entries = ptxas_entries(ptxas, "jrba_")
+    frames = {e["stack_frame"] for e in entries}
+    out = {"sass": counts, "entries": len(entries), "stack_frames": sorted(frames),
+           "max_registers": max(e["registers"] for e in entries),
+           "spills": sum(e["spill_stores"] + e["spill_loads"] for e in entries)}
+    log(f"[build] jrba_congestion evidence: {json.dumps(out)}")
+    assert counts["LDL"] == 0 and counts["STL"] == 0, "local memory in the JRBA kernel"
+    assert entries and frames == {0}, f"JRBA stack frames {sorted(frames)} bytes"
     return out
 
 
@@ -390,6 +460,15 @@ SCANS = {
 }
 
 
+# the kernel each scan family launches, by dtype
+SCAN_KERNEL = {
+    ("ssd_scan", torch.bfloat16): "ssd_scan_mma",
+    ("ssd_scan", torch.float32): "ssd_scan",
+    ("rwkv6_scan", torch.bfloat16): "rwkv6_scan",
+    ("rwkv6_scan", torch.float32): "rwkv6_scan",
+}
+
+
 def scan_inputs(name: str, shape, dtype, device) -> tuple:
     """Model-layout inputs from a seed: tests/test_kernels.py's
     distributions (decays across the model's whole valid range)."""
@@ -450,7 +529,8 @@ def scan_case(name: str, shape, dtype, device, reps: int, sequential: bool) -> d
     rtol, atol = SCAN_TOL[dtype]
     ratio = row_limit_ratio(got, want, rtol, atol)
     assert ratio <= 1.0, f"{label}: error {ratio:.3g} times the limit"
-    out = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+    out = {"kernel": SCAN_KERNEL[name, dtype], "shape": list(shape),
+           "dtype": str(dtype).replace("torch.", ""),
            "max_abs_err": float((got.float() - want.float()).abs().max()),
            "tolerance": [rtol, atol], "limit_ratio": ratio}
     if sequential:
@@ -469,8 +549,8 @@ def scan_case(name: str, shape, dtype, device, reps: int, sequential: bool) -> d
 
 def scan_phase(device) -> dict:
     """Each scan kernel against its plain version (and, at the test shapes,
-    the sequential oracle); returns the timings by kernel, the record (bf16
-    at the model's S=32768 shape) first."""
+    the sequential oracle); returns the timings by scan family, the model's
+    S=32768 shape first in each dtype (each kernel's record)."""
     out = {}
     for name, cases, model in (("ssd_scan", SSD_CASES, SSD_MODEL),
                                ("rwkv6_scan", RWKV_CASES, RWKV_MODEL)):
@@ -491,12 +571,13 @@ CHECK_LEN = 4096
 # the launches of one forward: one per layer of each kernel's kind
 FORWARD_LAUNCHES = {
     "gemma3-1b": {"flash_attention_wgmma": 26},
-    "zamba2-7b": {"ssd_scan": 68, "flash_attention_wgmma": 13},
+    "zamba2-7b": {"ssd_scan_mma": 68, "flash_attention_wgmma": 13},
     "rwkv6-3b": {"rwkv6_scan": 32},
 }
-# at f32 the same layers launch the f32 flash kernel instead
+# at f32 the same layers launch the f32 flash and SSD kernels instead
+F32_KERNEL = {"flash_attention_wgmma": "flash_attention", "ssd_scan_mma": "ssd_scan"}
 F32_LAUNCHES = {
-    arch: {("flash_attention" if k == "flash_attention_wgmma" else k): n for k, n in kinds.items()}
+    arch: {F32_KERNEL.get(k, k): n for k, n in kinds.items()}
     for arch, kinds in FORWARD_LAUNCHES.items()
 }
 # requests, slots, max_len, prompt lengths, new tokens; an SSM model's first
@@ -855,14 +936,19 @@ def flash_record(name: str, timings: list[dict], launches: int, by_path: dict,
 
 
 SCAN_SOURCES = {
+    "ssd_scan_mma": ("src/repro_torch/kernels/csrc/ssd_scan_mma.cu",
+                     "src/repro/kernels/ssd.py:23"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu", "src/repro/kernels/ssd.py:23"),
     "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6.py:22"),
 }
 
 
-def scan_record(name: str, timings: list[dict], launches: int, by_path: dict) -> dict:
-    main = timings[0]  # bf16 at the model's S=32768 shape
+def scan_record(name: str, timings: list[dict], launches: int, by_path: dict,
+                extra: dict | None = None) -> dict:
+    """A scan kernel's record: its main timing is the first of its
+    timings, at the model's S=32768 shape."""
+    main = timings[0]
     source, replaces = SCAN_SOURCES[name]
     return {
         "name": name,
@@ -880,6 +966,7 @@ def scan_record(name: str, timings: list[dict], launches: int, by_path: dict) ->
         "tolerance": "bf16 rtol 2e-2 atol 2e-2, f32 rtol 2e-4 atol 5e-4 against the plain "
         "version (atol as a share of each output row's root mean square)",
         "limit_ratio": max(t["limit_ratio"] for t in timings),
+        **(extra or {}),
         "launches_by_path": by_path,
         "timings": timings,
     }
@@ -1004,6 +1091,11 @@ def time_batch(progs: list, device) -> dict:
     assert torch.equal(steps_k, steps_p), "step counts differ"
     ms = time_call(jc.sparse_congestion_solve, args, kw, reps=20)
     plain_ms = time_call(jc.sparse_congestion_plain, args, kw, reps=3)
+    # a launch lasts as long as its slowest lane: its steps times one step's
+    # minimum dependent chain (the source's one-warp microbenchmark, at this
+    # batch's K, link tree width and hop width) is the latency floor
+    max_steps = int(steps_k.max())
+    step_floor = step_floor_ms(args)
     # bound: each input read once, each output written once; operations per
     # executed step per lane ~ softmax+Adam on Nf*K slots (25 each), the
     # scatter and gather over the lane's link entries (2 each), the smoothed
@@ -1018,7 +1110,12 @@ def time_batch(progs: list, device) -> dict:
     bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     out = {
         "shape": {"B": B, "Nf": Nf, "K": Kp, "P": P, "La": La, "n_iters": STREAM_ITERS},
+        "threads": jc.launch_plan(B, Nf, Kp, P, La, STREAM_ITERS)["threads"],
         "mean_steps": float(steps_k.double().mean()),
+        "max_steps": max_steps,
+        "ms_per_step": ms / max_steps,
+        "step_floor_ms": step_floor,
+        "latency_floor_ms": max_steps * step_floor,
         "max_abs_err": float((w_k - w_p).abs().max()),
         "max_span_rel_err": float(((span_k - span_p).abs() / span_p.clamp_min(1e-12)).max()),
         "ms": ms,
@@ -1028,6 +1125,21 @@ def time_batch(progs: list, device) -> dict:
     }
     log(f"[kernel] {json.dumps(out)}")
     return out
+
+
+def step_floor_ms(args) -> float:
+    """One step's minimum dependent chain for a batch's inputs: K paths,
+    link trees as wide as the power of two above the widest link's slot
+    count, hop trees of the kernel's hop width."""
+    ridx, ptr = args[0], args[5]
+    K, P = ridx.shape[2], ridx.shape[3]
+    deg = int((ptr[:, 1:] - ptr[:, :-1]).max())
+    return _step_floor(K, 1 << max(deg - 1, 0).bit_length(), jc.hop_width(P), ridx.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _step_floor(K: int, link_width: int, hop_width: int, device) -> float:
+    return jc.step_floor_ms(K, link_width, hop_width, device=device)
 
 
 def kernel_record(eng: JRBAEngine, stream: list, groups: list[list[int]], device) -> dict:
@@ -1058,8 +1170,14 @@ def kernel_record(eng: JRBAEngine, stream: list, groups: list[list[int]], device
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
+        "bound_note": "operations spread over the whole card; a lane's steps are serial, so "
+        "latency_floor_ms is the yardstick",
         "library_ms": None,
         "shape": main["shape"],
+        "max_steps": main["max_steps"],
+        "ms_per_step": main["ms_per_step"],
+        "step_floor_ms": main["step_floor_ms"],
+        "latency_floor_ms": main["latency_floor_ms"],
         "tolerance": "timed batches: w, span, steps bit for bit; stream: records identical, "
         "relaxed span rtol 5e-2",
         "timings": timings,
@@ -1204,6 +1322,8 @@ def main() -> int:
     log(card)
     ptxas = build_all()
     evidence = wgmma_evidence(ptxas["flash_attention_wgmma"])
+    ssd_evidence = ssd_mma_evidence(ptxas["ssd_scan_mma"])
+    jrba_sass = jrba_evidence(ptxas["jrba_congestion"])
     flash_timings = flash_phase(device)
     log(f"[time] after flash phase {time.perf_counter() - t_start:.1f} s")
     scan_timings = scan_phase(device)
@@ -1227,10 +1347,12 @@ def main() -> int:
     # stands beside it
     record["launches"] = by_path["fleet_256_lockstep"]
     by_path["placement"] = placement_launches
+    record["evidence"] = jrba_sass
     record["launches_by_path"] = by_path
     # each model kernel's main path is the S=32768 prefill of its model:
-    # gemma3-1b for bf16 flash attention, zamba2-7b for SSD, rwkv6-3b for
-    # RWKV-6; the f32 flash kernel's is gemma3-1b's f32 prefill at S=4096
+    # gemma3-1b for bf16 flash attention, zamba2-7b for bf16 SSD, rwkv6-3b for
+    # RWKV-6; the f32 kernels' are the f32 prefills at S=4096 of gemma3-1b
+    # (flash attention) and zamba2-7b (SSD)
     main_path = f"prefill_{PREFILL_LEN}"
     by_dtype = {d: [t for t in flash_timings if t["dtype"] == d] for d in ("bfloat16", "float32")}
     f32 = sorted(by_dtype["float32"], key=lambda t: (  # the f32 prefill's windowed shape first
@@ -1243,10 +1365,17 @@ def main() -> int:
                      model_paths["flash_attention"][f"gemma3-1b:f32_prefill_{CHECK_LEN}"],
                      model_paths["flash_attention"]),
     ]
+    ssd_rows = scan_timings["ssd_scan"]
     scans = [
-        scan_record(name, scan_timings[name], model_paths[name][f"{arch}:{main_path}"],
-                    model_paths[name])
-        for name, arch in (("ssd_scan", "zamba2-7b"), ("rwkv6_scan", "rwkv6-3b"))
+        scan_record("ssd_scan_mma", [t for t in ssd_rows if t["kernel"] == "ssd_scan_mma"],
+                    model_paths["ssd_scan_mma"][f"zamba2-7b:{main_path}"],
+                    model_paths["ssd_scan_mma"], {"evidence": ssd_evidence}),
+        scan_record("ssd_scan", [t for t in ssd_rows if t["kernel"] == "ssd_scan"],
+                    model_paths["ssd_scan"][f"zamba2-7b:f32_prefill_{CHECK_LEN}"],
+                    model_paths["ssd_scan"]),
+        scan_record("rwkv6_scan", scan_timings["rwkv6_scan"],
+                    model_paths["rwkv6_scan"][f"rwkv6-3b:{main_path}"],
+                    model_paths["rwkv6_scan"]),
     ]
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -18,7 +18,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load", "nvcc_path"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "launcher", "load", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -78,3 +78,13 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib, _, _ = build(name)
     return ctypes.CDLL(str(lib))
+
+
+def launcher(name: str, argtypes: list):
+    """``<name>_launch`` from the library of ``csrc/<name>.cu``, with its
+    ctypes argument types set and an ``int`` (CUDA error code) result."""
+    fn = getattr(load(name), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

@@ -1,7 +1,9 @@
-// Mamba-2 SSD chunked scan (forward): y only, as the TPU kernel returns it.
+// Mamba-2 SSD chunked scan (forward), f32 on the CUDA cores: y only, as the
+// TPU kernel returns it.
 //
-// Replaces the TPU kernel src/repro/kernels/ssd.py (_ssd_kernel, launched by
-// ssd_scan_hsd through pl.pallas_call). That kernel ran a (B, H, chunk) grid
+// Replaces, for f32 tensors, the TPU kernel src/repro/kernels/ssd.py
+// (_ssd_kernel, launched by ssd_scan_hsd through pl.pallas_call); bf16
+// tensors take csrc/ssd_scan_mma.cu, on the tensor cores. That kernel ran a (B, H, chunk) grid
 // whose chunk axis is sequential on the TensorCore and carried the N x P f32
 // state in VMEM scratch from one chunk to the next.
 //
@@ -11,8 +13,8 @@
 // exp(cum_i - cum_j) is computed only where j <= i: above the diagonal it may
 // be +inf, and 0 * inf would be NaN (the mask is a select, never a product).
 //
-// Layout: x (B, H, S, P) and y in x's type (bf16 or f32), dt (B, H, S) f32,
-// A (H,) f32, B and C (B, S, N) in x's type; every operand is read through
+// Layout: x (B, H, S, P), y, dt (B, H, S), A (H,), B and C (B, S, N), all
+// f32; every operand is read through
 // the strides the launcher is given, with only its last axis dense, so the
 // model's (B, S, H, P) tensors are read in place. f32 arithmetic throughout.
 //
@@ -24,12 +26,11 @@
 // block recomputes the chunk's Q x Q matrix C.B^T, which B and C (shared by
 // every head) make the same for all of them.
 //
-// What bounds it on Hopper: at the model's shape the bytes (x and y, 2 x 470
-// MB at S=32768, bf16) against 7.7e10 flops, so 0.29 ms at 3.35 TB/s if bf16
-// products ran on the tensor cores. This first version keeps every product
-// in f32 on the CUDA cores and is bound instead by its shared-memory loads
-// and FMAs per chunk (about 0.85k loads and 2.3k FMAs a thread); a
-// wgmma/TMA version is later work. The design answers the bound it has:
+// What bounds it on Hopper: at zamba2-7b's shape (S=32768, H=112, P=N=64,
+// chunk 64) its 7.7e10 f32 operations on the CUDA cores (1.15 ms at 67
+// TFLOP/s); in practice its shared-memory loads and FMAs per chunk (about
+// 0.85k loads and 2.3k FMAs a thread). Exact f32 keeps it off the tensor
+// cores. The design answers the bound it has:
 //   * C.B^T in a TQ x TQ register tile a thread (TQ = Q/16), operands read
 //     from n-major tiles with one vector load each;
 //   * W = mask(C.B^T * decay) * dt is stored transposed, so the product
@@ -41,7 +42,6 @@
 //   * products are explicit fmaf, so the repository's -fmad=false flag does
 //     not split them.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -57,11 +57,6 @@ struct Strides {
   long long c_b, c_s;
   long long y_b, y_h, y_s;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // K consecutive floats from 16-byte-aligned (K >= 4) or K-aligned shared memory
 template <int K>
@@ -101,11 +96,11 @@ constexpr size_t smem_floats(int N) {
   return 2 * (size_t)N * QS + (size_t)Q * QS + (size_t)Q * PB + (size_t)N * PB + 4 * Q;
 }
 
-template <typename T, int Q, int PB>
+template <int Q, int PB>
 __global__ void __launch_bounds__(THREADS)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const T* __restrict__ Bm,
-                const T* __restrict__ Cm, T* __restrict__ y, int S, int N, Strides st) {
+ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ A, const float* __restrict__ Bm,
+                const float* __restrict__ Cm, float* __restrict__ y, int S, int N, Strides st) {
   static_assert(Q % 16 == 0 && PB % 16 == 0, "Q and PB must be multiples of 16");
   constexpr int TQ = Q / 16;  // rows (and columns of C.B^T) of a thread
   constexpr int QS = Q + 4;   // row stride of the n-major tiles and of W^T
@@ -124,11 +119,11 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int p0 = blockIdx.x * PB, h = blockIdx.y, b = blockIdx.z;
   const float a = A[h];
-  const T* xb = x + b * st.x_b + h * st.x_h + p0;
+  const float* xb = x + b * st.x_b + h * st.x_h + p0;
   const float* dtb = dt + b * st.dt_b + h * st.dt_h;
-  const T* Bb = Bm + b * st.b_b;
-  const T* Cb = Cm + b * st.c_b;
-  T* yb = y + b * st.y_b + h * st.y_h + p0;
+  const float* Bb = Bm + b * st.b_b;
+  const float* Cb = Cm + b * st.c_b;
+  float* yb = y + b * st.y_b + h * st.y_h + p0;
 
   for (int i = tid; i < N * PB; i += THREADS) hs[i] = 0.f;
 
@@ -137,12 +132,12 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int i = tid; i < Q * N; i += THREADS) {
       const int r = i / N, n = i - r * N;
       const long long row = c0 + r;
-      cT[n * QS + r] = to_f32(Cb[row * st.c_s + n]);
-      bT[n * QS + r] = to_f32(Bb[row * st.b_s + n]);
+      cT[n * QS + r] = Cb[row * st.c_s + n];
+      bT[n * QS + r] = Bb[row * st.b_s + n];
     }
     for (int i = tid; i < Q * PB; i += THREADS) {
       const int r = i / PB, p = i - r * PB;
-      xs[i] = to_f32(xb[(long long)(c0 + r) * st.x_s + p]);
+      xs[i] = xb[(long long)(c0 + r) * st.x_s + p];
     }
     if (tid < Q) dts[tid] = dtb[(long long)(c0 + tid) * st.dt_s];
     __syncthreads();
@@ -232,9 +227,9 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int i = 0; i < TQ; ++i) {
         const int row = ty * TQ + i;
         const float e = ecum[row];
-        T* out = yb + (long long)(c0 + row) * st.y_s + tx;
+        float* out = yb + (long long)(c0 + row) * st.y_s + tx;
 #pragma unroll
-        for (int c = 0; c < PC; ++c) store(out + 16 * c, acc[i][c] + e * inter[i][c]);
+        for (int c = 0; c < PC; ++c) out[16 * c] = acc[i][c] + e * inter[i][c];
       }
     }
     // B_j scaled by exp(cum_Q - cum_j) dt_j, in place: only the state
@@ -283,51 +278,39 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T, int Q, int PB>
-int launch(const void* x, const float* dt, const float* A, const void* Bm, const void* Cm,
-           void* y, int B, int H, int S, int P, int N, const Strides& st, cudaStream_t stream) {
+template <int Q, int PB>
+int launch(const float* x, const float* dt, const float* A, const float* Bm, const float* Cm,
+           float* y, int B, int H, int S, int P, int N, const Strides& st, cudaStream_t stream) {
   const size_t smem = smem_floats<Q, PB>(N) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T, Q, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ssd_scan_kernel<Q, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(P / PB, H, B);
-  ssd_scan_kernel<T, Q, PB><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), static_cast<const T*>(Cm),
-      static_cast<T*>(y), S, N, st);
+  ssd_scan_kernel<Q, PB><<<grid, THREADS, smem, stream>>>(x, dt, A, Bm, Cm, y, S, N, st);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int PB>
-int dispatch_q(int Q, const void* x, const float* dt, const float* A, const void* Bm,
-               const void* Cm, void* y, int B, int H, int S, int P, int N, const Strides& st,
+template <int PB>
+int dispatch_q(int Q, const float* x, const float* dt, const float* A, const float* Bm,
+               const float* Cm, float* y, int B, int H, int S, int P, int N, const Strides& st,
                cudaStream_t s) {
   switch (Q) {
-    case 16: return launch<T, 16, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, st, s);
-    case 32: return launch<T, 32, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, st, s);
-    case 64: return launch<T, 64, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, st, s);
-    case 128: return launch<T, 128, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, st, s);
+    case 16: return launch<16, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, st, s);
+    case 32: return launch<32, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, st, s);
+    case 64: return launch<64, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, st, s);
+    case 128: return launch<128, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, st, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-template <typename T>
-int dispatch(int Q, const void* x, const float* dt, const float* A, const void* Bm,
-             const void* Cm, void* y, int B, int H, int S, int P, int N, const Strides& st,
-             cudaStream_t s) {
-  // 32 value columns a block where P allows it, else 16
-  if (P % 32 == 0) return dispatch_q<T, 32>(Q, x, dt, A, Bm, Cm, y, B, H, S, P, N, st, s);
-  return dispatch_q<T, 16>(Q, x, dt, A, Bm, Cm, y, B, H, S, P, N, st, s);
 }
 
 }  // namespace
 
 // strides: x (b, h, s), dt (b, h, s), B (b, s), C (b, s), y (b, h, s), in
-// elements; every last axis is dense. Returns the launch's cudaGetLastError()
-// code (0 on success). is_bf16 selects bf16 x, B, C and y, otherwise f32.
-// Does not synchronise.
+// elements; every last axis is dense; every operand is f32. Returns the
+// launch's cudaGetLastError() code (0 on success). Does not synchronise.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A, const void* Bm,
                                const void* Cm, void* y, int B, int H, int S, int P, int N,
-                               int Q, const long long* strides, int is_bf16, void* stream) {
+                               int Q, const long long* strides, void* stream) {
   if (B < 1 || H < 1 || S < 1 || N < 1 || N > MAX_N || P < 16 || P % 16 != 0 || Q < 1 ||
       S % Q != 0)
     return (int)cudaErrorInvalidValue;
@@ -335,8 +318,13 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A, con
                    strides[5], strides[6], strides[7], strides[8], strides[9],
                    strides[10], strides[11], strides[12]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
-  return is_bf16 ? dispatch<__nv_bfloat16>(Q, x, dtf, Af, Bm, Cm, y, B, H, S, P, N, st, s)
-                 : dispatch<float>(Q, x, dtf, Af, Bm, Cm, y, B, H, S, P, N, st, s);
+  const float* bf = static_cast<const float*>(Bm);
+  const float* cf = static_cast<const float*>(Cm);
+  float* yf = static_cast<float*>(y);
+  // 32 value columns a block where P allows it, else 16
+  if (P % 32 == 0) return dispatch_q<32>(Q, xf, dtf, Af, bf, cf, yf, B, H, S, P, N, st, s);
+  return dispatch_q<16>(Q, xf, dtf, Af, bf, cf, yf, B, H, S, P, N, st, s);
 }

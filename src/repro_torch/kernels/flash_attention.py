@@ -166,14 +166,6 @@ def _check(name: str, x: torch.Tensor, like: torch.Tensor, shape: tuple) -> None
         raise ValueError(f"{name} must be contiguous")
 
 
-def _library(name: str, argtypes: list):
-    fn = getattr(_build.load(name), f"{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _stream(q: torch.Tensor) -> int:
     return torch.cuda.current_stream(q.device).cuda_stream
 
@@ -183,7 +175,7 @@ def flash_attention_wgmma(q, k, v, out, *, window: int) -> None:
     writing ``out``; counts its launches."""
     B, H, S, D = q.shape
     plan = wgmma_plan(D)
-    fn = _library("flash_attention_wgmma", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn = _build.launcher("flash_attention_wgmma", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(
@@ -201,7 +193,7 @@ def flash_attention_f32(q, k, v, out, *, window: int) -> None:
     """Launch ``csrc/flash_attention.cu`` on checked f32 CUDA tensors,
     writing ``out``; counts its launches."""
     B, H, S, D = q.shape
-    fn = _library("flash_attention", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn = _build.launcher("flash_attention", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -18,21 +18,28 @@ note says what bounds it on Hopper and how the design answers that.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..core.jrba import _adam, _converged, _mask, _schedule_tensor, probe_schedule
 from . import _build
 
-__all__ = ["sparse_congestion_plain", "sparse_congestion_solve", "kernel_smem_bytes"]
+__all__ = [
+    "kernel_smem_bytes", "launch_plan", "sparse_congestion_plain", "sparse_congestion_solve",
+    "step_floor_ms", "table_bytes",
+]
 
 LIBRARY = "jrba_congestion"
-# K is a template parameter of the kernel; it is the engine's k, which callers
-# set freely (JRBAEngine and OnlineScheduler default to 4, the fleet smoke run
-# uses 3)
+# K, the engine's k, which callers set freely (JRBAEngine and OnlineScheduler
+# default to 4, the fleet smoke run uses 3), is a run-time bound of the
+# kernel: its instances run over 3, 4 or 8 paths, padding the rest
 MAX_K = 8
-MAX_THREADS = 1024
-MAX_SMEM = 48 * 1024  # static launch limit without an opt-in attribute
+K_WIDTHS = (3, 4, 8)
+STAGED_THREADS = 512  # the staged block instance's launch bound (a one-warp lane is 32)
+MAX_THREADS = 1024  # the general instance's
+MAX_SMEM = 227 * 1024  # dynamic shared memory a block can opt into on Hopper
+HOP_WIDTHS = (4, 8, 16)  # the hop trees' compile-time widths
 
 
 def _threads(nf: int, la: int) -> int:
@@ -40,10 +47,65 @@ def _threads(nf: int, la: int) -> int:
     return -(-max(nf, la, 1) // 32) * 32
 
 
-def kernel_smem_bytes(nf: int, k: int, la: int) -> int:
-    """Dynamic shared memory of one block: vol*w slots, link gradients and
-    two 32-entry reduction buffers (f32)."""
-    return 4 * (nf * k + la + 64)
+def hop_width(p: int) -> int:
+    """The hop table's padded width for paths of ``p`` hops: the smallest of
+    :data:`HOP_WIDTHS` that holds them; longer paths (P > 16) sum 16-hop
+    trees. Padding hops hold the sentinel, a zero gradient: exact."""
+    return next((w for w in HOP_WIDTHS if p <= w), HOP_WIDTHS[-1])
+
+
+def k_width(k: int) -> int:
+    """The paths the instance for ``k`` paths per flow runs over: the
+    smallest of :data:`K_WIDTHS` that holds them."""
+    return next(w for w in K_WIDTHS if k <= w)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def table_bytes(nf: int, k: int, p: int) -> int:
+    """One lane's tables (``Layout.table_bytes`` in the source): the hop
+    table (u16, KM x padded P x Nf, the padding paths all sentinels) and the
+    slot list (u16, at most Nf*K*P entries)."""
+    hops = 2 * k_width(k) * max(p, hop_width(p)) * nf
+    return _align16(hops) + _align16(2 * nf * k * p)
+
+
+def kernel_smem_bytes(nf: int, k: int, la: int, p: int, n_iters: int, *,
+                      staged: bool = True) -> int:
+    """Dynamic shared memory of one block (``Layout`` in the source): vol*w
+    and link gradients (f32) and two 32-entry reduction buffers; then, staged,
+    the schedule (3 f32 a step) and the tables, or, in the general instance,
+    the rows' logits, Adam moments, weights and gradients (f32, 5 x KM a
+    row)."""
+    step = _align16(4 * nf * k) + _align16(4 * (la + 1)) + 4 * 64
+    if staged:
+        return step + _align16(12 * n_iters) + table_bytes(nf, k, p)
+    return step + 20 * k_width(k) * nf
+
+
+def launch_plan(B: int, Nf: int, K: int, P: int, La: int, n_iters: int) -> dict:
+    """The launch of one batch: threads per block, shared memory, hop width,
+    whether the lane is staged in shared memory (the one-warp or the block
+    instance) or runs on the general instance, and the general instance's
+    workspace bytes a lane (0 when staged); raises ``ValueError`` on a shape
+    no instance takes."""
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"K={K} paths per flow; the kernel takes 1..{MAX_K}")
+    if B < 1 or Nf < 1 or La < 1 or P < 1 or n_iters < 1:
+        raise ValueError(f"empty problem: B={B} Nf={Nf} La={La} P={P} n_iters={n_iters}")
+    threads = _threads(Nf, La)
+    if threads > MAX_THREADS:
+        raise ValueError(f"Nf={Nf}, La={La}: needs {threads} threads > {MAX_THREADS} a block")
+    smem = kernel_smem_bytes(Nf, K, La, P, n_iters)
+    staged = threads <= STAGED_THREADS and smem <= MAX_SMEM
+    if not staged:
+        smem = kernel_smem_bytes(Nf, K, La, P, n_iters, staged=False)
+        if smem > MAX_SMEM:
+            raise ValueError(f"Nf={Nf}, K={K}, La={La}: {smem} B shared memory > {MAX_SMEM}")
+    return {"threads": threads, "smem": smem, "hop_width": hop_width(P), "staged": staged,
+            "workspace": 0 if staged else table_bytes(Nf, K, P)}
 
 
 # The sparse solver's sums run in the CUDA kernel's order, so that on the card
@@ -222,12 +284,20 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+@functools.lru_cache(maxsize=32)
+def _device_schedule(n_iters: int, device: torch.device) -> torch.Tensor:
+    """The step schedule on the card, uploaded once per (n_iters, device)
+    and only read: an upload per launch from pageable memory would
+    synchronise the stream before every launch."""
+    return _schedule_tensor(n_iters, device)
+
+
 def _launcher():
     fn = _build.load(LIBRARY).jrba_congestion_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -278,31 +348,26 @@ def sparse_congestion_solve(
     _check("csr_slot", csr_slot, torch.int32, None, dev)
     if csr_slot.dim() != 1:
         raise ValueError("csr_slot must be 1-D")
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"K={K} paths per flow; the kernel takes 1..{MAX_K}")
-    if B < 1 or Nf < 1 or La < 1 or P < 1 or n_iters < 1:
-        raise ValueError(f"empty problem: B={B} Nf={Nf} La={La} P={P} n_iters={n_iters}")
-    threads = _threads(Nf, La)
-    if threads > MAX_THREADS:
-        raise ValueError(f"Nf={Nf}, La={La}: needs {threads} threads > {MAX_THREADS} a block")
-    smem = kernel_smem_bytes(Nf, K, La)
-    if smem > MAX_SMEM:
-        raise ValueError(f"Nf={Nf}, K={K}, La={La}: {smem} B shared memory > {MAX_SMEM}")
+    plan = launch_plan(B, Nf, K, P, La, n_iters)
     n_chunks, chunk_steps = probe_schedule(n_iters)
-    sched = _schedule_tensor(n_iters, dev)
+    sched = _device_schedule(n_iters, dev)
     mask = _mask(valid)
     w = torch.empty((B, Nf, K), dtype=torch.float32, device=dev)
     span = torch.empty((B,), dtype=torch.float32, device=dev)
     steps = torch.empty((B,), dtype=torch.int32, device=dev)
+    # the general instance's tables, one slice a lane
+    workspace = (torch.empty(B * plan["workspace"], dtype=torch.uint8, device=dev)
+                 if plan["workspace"] else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher()(
             ridx.data_ptr(), mask.data_ptr(), volumes.data_ptr(), cap_a.data_ptr(),
             n_outside.data_ptr(), csr_ptr.data_ptr(), csr_slot.data_ptr(), sched.data_ptr(),
             w.data_ptr(), span.data_ptr(), steps.data_ptr(),
+            None if workspace is None else workspace.data_ptr(),
             B, Nf, K, P, La, n_chunks, chunk_steps,
             float(lr), int(early_exit), float(span_rtol), int(stable_chunks), int(min_chunks),
-            threads, smem, stream,
+            plan["threads"], plan["smem"], plan["hop_width"], int(plan["staged"]), stream,
         )
     if err != 0:
         raise RuntimeError(f"jrba_congestion launch failed: CUDA error {err}")
@@ -311,3 +376,32 @@ def sparse_congestion_solve(
 
 
 sparse_congestion_solve.launches = 0
+
+
+def step_floor_ms(K: int, link_width: int, hop_width_: int, *, device, steps: int = 20000,
+                  reps: int = 5) -> float:
+    """Milliseconds of one step's minimum dependent chain on the card: the
+    source's one-warp microbenchmark (``jrba_step_floor_launch``: register
+    operands, link trees of ``link_width`` and hop trees of ``hop_width_``
+    values), the best of ``reps`` CUDA-event timings over ``steps`` steps. A
+    measurement beside the kernel, not a launch of it: ``launches`` does not
+    move."""
+    fn = _build.load(LIBRARY).jrba_step_floor_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    out = torch.empty(1, dtype=torch.float32, device=device)
+    levels = [max(n - 1, 0).bit_length() for n in (link_width, hop_width_)]
+    best = float("inf")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for _ in range(reps + 1):  # the first launch warms up
+            start.record()
+            err = fn(K, steps, *levels, out.data_ptr(), stream)
+            end.record()
+            if err != 0:
+                raise RuntimeError(f"jrba_step_floor launch failed: CUDA error {err}")
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / steps)
+    return best

@@ -9,13 +9,21 @@ Python loop where the JAX twin runs ``lax.scan``). It returns
 
 :func:`ssd_scan_hsd` takes heads-major ``x (B, H, S, P)``, ``dt (B, H, S)``,
 ``A (H,)``, ``B/C (B, S, N)`` and returns ``y (B, H, S, P)`` in x's dtype. On
-a CUDA tensor it launches ``csrc/ssd_scan.cu`` once (counted in
-``ssd_scan_hsd.launches``) and raises on any input the kernel does not take;
-the kernel reads strided views (only the last axis must be dense), so the
-model-layout wrapper ``ops.ssd_scan`` hands it transposed views and no copy is
-made. On a CPU tensor it runs the plain version. The kernel replaces the TPU
-kernel ``_ssd_kernel`` / ``ssd_scan_hsd`` of the JAX package and, like it,
-returns ``y`` only.
+a CUDA tensor it launches one kernel, by dtype, and raises on any input the
+kernels do not take:
+
+* bf16 -> ``csrc/ssd_scan_mma.cu``: the four products of a chunk on the
+  tensor cores (``mma.sync``, f32 accumulators, the state f32 across
+  chunks), the next chunk's loads by ``cp.async`` behind the current one;
+* f32 -> ``csrc/ssd_scan.cu``: exact f32 on the CUDA cores.
+
+Each launcher counts its own launches (``ssd_scan_mma.launches``,
+``ssd_scan_f32.launches``), and ``ssd_scan_hsd.launches`` counts both. The
+kernels read strided views (only the last axis must be dense), so the
+model-layout wrapper ``ops.ssd_scan`` hands them transposed views and no copy
+is made. On a CPU tensor the wrapper runs the plain version. The kernels
+replace the TPU kernel ``_ssd_kernel`` / ``ssd_scan_hsd`` of the JAX package
+and, like it, return ``y`` only.
 """
 from __future__ import annotations
 
@@ -25,11 +33,13 @@ import torch
 
 from . import _build
 
-__all__ = ["CHUNKS", "empty_in_layout", "ssd_chunked", "ssd_scan_hsd", "ssd_scan_plain"]
+__all__ = [
+    "CHUNKS", "empty_in_layout", "ssd_chunked", "ssd_scan_f32",
+    "ssd_scan_hsd", "ssd_scan_mma", "ssd_scan_plain",
+]
 
-LIBRARY = "ssd_scan"
-CHUNKS = (16, 32, 64, 128)  # the kernel's chunk lengths (template instances)
-MAX_STATE = 64  # N: the state update keeps up to 4 rows of 16 a thread
+CHUNKS = (16, 32, 64, 128)  # the kernels' chunk lengths (template instances)
+MAX_STATE = 64  # N: the f32 update keeps up to 4 rows of 16 a thread; the mma one pads to 64
 DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -119,14 +129,51 @@ def check_operand(
         raise ValueError(f"{name} must have a dense last axis, has strides {t.stride()}")
 
 
-def _launcher():
-    fn = _build.load(LIBRARY).ssd_scan_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return fn
+def _strides(x, dt, Bm, Cm, y):
+    return (ctypes.c_longlong * 13)(
+        *x.stride()[:3], *dt.stride(), *Bm.stride()[:2], *Cm.stride()[:2], *y.stride()[:3]
+    )
+
+
+def _rows_16b(t: torch.Tensor, n_strided: int) -> bool:
+    """Whether every row of ``t`` starts 16-byte aligned: an aligned base
+    and the first ``n_strided`` strides multiples of 8 bf16 elements."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:n_strided])
+
+
+def ssd_scan_mma(x, dt, A, Bm, Cm, y, Q: int) -> None:
+    """Launch ``csrc/ssd_scan_mma.cu`` on checked bf16 CUDA tensors, writing
+    ``y``; counts its launches. Rows of x, B and C that are 16-byte aligned,
+    with N a multiple of 8, load by 16-byte ``cp.async``; any other strided
+    view loads element by element."""
+    B, H, S, P = x.shape
+    N = Bm.shape[-1]
+    vec = N % 8 == 0 and _rows_16b(x, 3) and _rows_16b(Bm, 2) and _rows_16b(Cm, 2)
+    fn = _build.launcher("ssd_scan_mma", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                 y.data_ptr(), B, H, S, P, N, Q, _strides(x, dt, Bm, Cm, y), int(vec),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_mma launch failed: CUDA error {err}")
+    ssd_scan_mma.launches += 1
+
+
+def ssd_scan_f32(x, dt, A, Bm, Cm, y, Q: int) -> None:
+    """Launch ``csrc/ssd_scan.cu`` on checked f32 CUDA tensors, writing
+    ``y``; counts its launches."""
+    B, H, S, P = x.shape
+    N = Bm.shape[-1]
+    fn = _build.launcher("ssd_scan", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                 y.data_ptr(), B, H, S, P, N, Q, _strides(x, dt, Bm, Cm, y),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+    ssd_scan_f32.launches += 1
 
 
 @torch.no_grad()
@@ -140,8 +187,9 @@ def ssd_scan_hsd(
     chunk: int = 64,
 ) -> torch.Tensor:
     """The SSD scan, heads-major; ``y (B, H, S, P)`` in x's dtype. A CUDA
-    ``x`` launches the kernel with chunk length ``min(chunk, S)``, which must
-    be one of :data:`CHUNKS` and divide S; a CPU one runs the plain version."""
+    ``x`` launches the bf16 or the f32 kernel with chunk length
+    ``min(chunk, S)``, which must be one of :data:`CHUNKS` and divide S; a
+    CPU one runs the plain version."""
     if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 3:
         raise ValueError(f"x, dt and B must be 4-, 3- and 3-D, got {x.dim()}, {dt.dim()}, "
                          f"{Bm.dim()}")
@@ -164,19 +212,14 @@ def ssd_scan_hsd(
     if not 1 <= N <= MAX_STATE or P % 16:
         raise ValueError(f"N={N}, P={P}: the kernel takes N <= {MAX_STATE} and P a multiple of 16")
     y = empty_in_layout(x)
-    strides = (ctypes.c_longlong * 13)(
-        *x.stride()[:3], *dt.stride(), *Bm.stride()[:2], *Cm.stride()[:2], *y.stride()[:3]
-    )
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _launcher()(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            y.data_ptr(), B, H, S, P, N, Q, strides, int(x.dtype == torch.bfloat16), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+    if x.dtype == torch.bfloat16:
+        ssd_scan_mma(x, dt, A, Bm, Cm, y, Q)
+    else:
+        ssd_scan_f32(x, dt, A, Bm, Cm, y, Q)
     ssd_scan_hsd.launches += 1
     return y
 
 
-ssd_scan_hsd.launches = 0
+ssd_scan_hsd.launches = 0  # both kernels
+ssd_scan_mma.launches = 0
+ssd_scan_f32.launches = 0

@@ -211,7 +211,133 @@ def test_wrapper_rejects_other_devices():
 
 def test_kernel_limits_cover_the_scheduler_shapes():
     """The largest programs the scheduler's buckets produce (Nf 64, K 4,
-    La 256) fit one block's threads and static shared memory."""
-    assert jc._threads(64, 256) <= jc.MAX_THREADS
-    assert jc.kernel_smem_bytes(64, 4, 256) <= jc.MAX_SMEM
+    La 256) fit a staged block: its threads and its shared memory."""
+    assert jc._threads(64, 256) <= jc.STAGED_THREADS
+    assert jc.kernel_smem_bytes(64, 4, 256, 16, 400) <= jc.MAX_SMEM
+    assert jc.launch_plan(64, 64, 4, 16, 256, 400)["staged"]
     assert jc._threads(8, 21) == 32
+
+
+def _kernel_pairwise(values, chunk):
+    """The kernel's ``pairwise<CW>``: trees of ``chunk`` values (zeros past
+    the end), their totals streamed through a stack of pending sums."""
+    values = np.asarray(values, dtype=np.float32)
+    n = len(values)
+    nch = -(-n // chunk)
+    stack = {}
+    for c in range(nch):
+        v = np.zeros(chunk, dtype=np.float32)
+        v[: min(chunk, n - c * chunk)] = values[c * chunk : (c + 1) * chunk]
+        while len(v) > 1:
+            v = v[0::2] + v[1::2]
+        x, level = v[0], 0
+        while (c >> level) & 1:
+            x = stack.pop(level) + x
+            level += 1
+        stack[level] = x
+    acc = None
+    for level in sorted(stack):
+        acc = stack[level] if acc is None else stack[level] + acc
+    return np.float32(0) if acc is None else acc
+
+
+@pytest.mark.parametrize("name", sorted(port.SCENARIOS))
+def test_kernel_staged_tables_sum_in_the_plain_order(name):
+    """What the kernel stages from a program and sums, in its order, gives
+    the plain version's bits: each link's slot list (trees of 8, streamed)
+    against the padded slot table, and each path's hops in the (k, p, row)
+    table padded to the hop width with the sentinel (a zero gradient)
+    against the gather over ridx."""
+    from repro_torch.kernels.jrba_congestion import _pairwise_sum, _slot_table
+
+    net, _ = port.SCENARIOS[name].build(seed=0, n_jobs=4)
+    rng = np.random.default_rng(0)
+    for fs in port.random_flow_sets(net, 3, 8, seed=9):
+        prog = port.build_program(net, fs, k=K)
+        nf, k, p = prog.ridx.shape
+        la, nk = prog.la_pad, nf * k
+        vw = rng.lognormal(0, 3, nk).astype(np.float32)
+        table = _slot_table(torch.from_numpy(prog.csr_ptr)[None],
+                            torch.from_numpy(prog.csr_slot), nk)[0]
+        want = _pairwise_sum(torch.cat([torch.from_numpy(vw), torch.zeros(1)])[table]).numpy()
+        for l in range(la):
+            slots = prog.csr_slot[prog.csr_ptr[l] : prog.csr_ptr[l + 1]]
+            assert _kernel_pairwise(vw[slots], 8) == want[l], (name, l)
+        glink = np.append(rng.lognormal(0, 3, la).astype(np.float32), np.float32(0))
+        width = jc.hop_width(p)
+        hops = np.full((k, max(p, width), nf), la, dtype=np.int64)
+        hops[:, :p, :] = prog.ridx.transpose(1, 2, 0)
+        want = _pairwise_sum(torch.from_numpy(glink)[torch.from_numpy(prog.ridx).long()]).numpy()
+        for i in range(nf):
+            for kk in range(k):
+                vals = glink[hops[kk, :, i]]
+                assert _kernel_pairwise(vals, min(width, len(vals))) == want[i, kk], (name, i)
+
+
+def test_launch_plan_raises_on_shapes_the_kernel_does_not_take():
+    """The wrapper's launch plan: one-warp lanes up to 32 rows and links,
+    hop widths 4, 8, 16 (longer paths in 16-hop trees), and a ValueError
+    for K outside 1..8, an empty problem or more than 1024 threads."""
+    plan = jc.launch_plan(64, 8, 3, 4, 8, 400)
+    assert plan == {"threads": 32, "smem": jc.kernel_smem_bytes(8, 3, 8, 4, 400),
+                    "hop_width": 4, "staged": True, "workspace": 0}
+    assert jc.launch_plan(4, 40, 4, 16, 64, 400)["threads"] == 64
+    assert [jc.hop_width(p) for p in (1, 4, 5, 8, 9, 16, 32)] == [4, 4, 8, 8, 16, 16, 16]
+    assert [jc.k_width(k) for k in range(1, 9)] == [3, 3, 3, 4, 8, 8, 8, 8]
+    for bad in (
+        dict(K=0), dict(K=9), dict(Nf=1025), dict(La=1100), dict(B=0), dict(n_iters=0),
+    ):
+        shape = dict(B=4, Nf=8, K=3, P=4, La=8, n_iters=400) | bad
+        with pytest.raises(ValueError):
+            jc.launch_plan(**shape)
+
+
+@pytest.mark.parametrize("shape", [
+    dict(Nf=513), dict(La=600), dict(Nf=1024, K=8, P=32, La=1024), dict(n_iters=20000),
+    dict(Nf=512, K=8, P=32),
+])
+def test_launch_plan_takes_the_general_instance_beyond_staging(shape):
+    """Lanes of 513-1024 threads, or whose schedule and tables exceed a
+    block's shared memory, run on the general instance: its shared memory
+    (step hand-offs and the rows' state) fits, and its tables go to a
+    workspace of ``table_bytes`` a lane."""
+    shape = dict(B=4, Nf=8, K=3, P=4, La=8, n_iters=400) | shape
+    plan = jc.launch_plan(**shape)
+    nf, k, p, la = shape["Nf"], shape["K"], shape["P"], shape["La"]
+    assert not plan["staged"]
+    assert plan["threads"] == jc._threads(nf, la) <= jc.MAX_THREADS
+    assert plan["smem"] == jc.kernel_smem_bytes(nf, k, la, p, shape["n_iters"], staged=False)
+    assert plan["smem"] <= jc.MAX_SMEM
+    assert plan["workspace"] == jc.table_bytes(nf, k, p)
+
+
+def _kernel_div_rn(a, b):
+    """The kernel's ``div_rn`` in float32: a zero dividend's signed zero, a
+    tiny one scaled by 2^64 and the quotient back by 2^-64 while it stays
+    normal, else the division itself."""
+    a, b = np.float32(a), np.float32(b)
+    tiny = abs(a) < np.float32(2.0**-64)
+    zero = a == 0 and b == b and b != 0
+    q = (np.float32(1) if zero else a * np.float32(2.0**64) if tiny else a) / b
+    r = np.copysign(np.float32(0), a) * np.sign(b) if zero else (
+        q * np.float32(2.0**-64) if tiny else q)
+    if tiny and not zero and abs(q) < np.float32(2.0**-62):
+        r = a / b
+    return r
+
+
+def test_kernel_division_matches_ieee_bit_for_bit():
+    """Scaling a tiny dividend by 2^64 and its quotient back is exact while
+    the quotient is normal: the kernel's division gives IEEE's bits on
+    random, tiny, denormal and signed-zero dividends over the divisors the
+    kernel meets (capacities, temperatures, Adam's corrections, sums)."""
+    rng = np.random.default_rng(0)
+    exps = rng.uniform(-149, 20, 20000)
+    a = (rng.choice([-1.0, 1.0], 20000) * 2.0**exps).astype(np.float32)
+    a[:8] = [0.0, -0.0, 2.0**-149, -(2.0**-149), 2.0**-126, 2.0**-64, 2.0**-65, 1e-45]
+    b = (2.0 ** rng.uniform(-30, 40, 20000)).astype(np.float32)
+    with np.errstate(under="ignore"):
+        for x, y in zip(a, b):
+            want = x / y
+            got = _kernel_div_rn(x, y)
+            assert got.view(np.int32) == want.view(np.int32), (x, y, got, want)

@@ -10,6 +10,7 @@ import torch
 from repro_torch.core import SCENARIOS, build_program, random_flow_sets
 from repro_torch.core.jrba import (
     _finalize,
+    _link_slots,
     solve_relaxation_sparse,
     solve_relaxation_sparse_batch,
 )
@@ -114,6 +115,124 @@ def test_wrapper_rejects_bad_inputs():
     bad[3] = bad[3].cpu()
     with pytest.raises(ValueError):
         jc.sparse_congestion_solve(*bad, n_iters=50)
+
+
+def _synthetic_batch(B, Nf, K, P, La, seed):
+    """A batch of random programs of one shape: each path a random run of
+    1..P distinct active links (sentinel La after it), some paths invalid,
+    random volumes and capacities; slot lists from the engine's builder."""
+    rng = np.random.default_rng(seed)
+    ridx = np.full((B, Nf, K, P), La, dtype=np.int32)
+    valid = rng.random((B, Nf, K)) < 0.8
+    valid[:, :, 0] = True
+    for b in range(B):
+        for i in range(Nf):
+            for k in range(K):
+                n = min(int(rng.integers(1, P + 1)), La)
+                ridx[b, i, k, :n] = rng.choice(La, size=n, replace=False)
+    ptrs, slots, off = [], [], 0
+    for b in range(B):
+        ptr, slot = _link_slots(ridx[b], La)
+        ptrs.append(ptr + off)
+        slots.append(slot)
+        off += len(slot)
+    dev = torch.device("cuda")
+    return [
+        torch.from_numpy(ridx).to(dev),
+        torch.from_numpy(valid).to(dev),
+        torch.from_numpy(rng.uniform(0.1, 5.0, (B, Nf)).astype(np.float32)).to(dev),
+        torch.from_numpy(rng.uniform(0.5, 4.0, (B, La)).astype(np.float32)).to(dev),
+        torch.from_numpy(rng.integers(0, 50, B).astype(np.float32)).to(dev),
+        torch.from_numpy(np.stack(ptrs)).to(dev),
+        torch.from_numpy(np.concatenate(slots)).to(dev),
+    ]
+
+
+# (Nf, La): one-warp lanes, lanes wider than a warp by rows, by links or
+# both, and lanes wider than the staged block (513-1024 threads, the general
+# instance) by links and by rows
+LANE_SHAPES = [(8, 16), (24, 32), (40, 16), (8, 100), (64, 256), (8, 600), (600, 40)]
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("P", [4, 8, 16, 32])
+def test_kernel_bits_across_instances(P, early_exit):
+    """The one-warp, the block and the general instances, at every hop
+    width (P=32 sums two 16-hop trees), against the plain version bit for
+    bit."""
+    _need_card()
+    for j, (nf, la) in enumerate(LANE_SHAPES):
+        args = _synthetic_batch(6, nf, K, P, la, seed=100 * P + j)
+        kw = dict(n_iters=N_ITERS, early_exit=early_exit)
+        plan = jc.launch_plan(6, nf, K, P, la, N_ITERS)
+        threads = plan["threads"]
+        assert (threads == 32) == (max(nf, la) <= 32)
+        assert plan["staged"] == (threads <= jc.STAGED_THREADS)
+        w_k, span_k, steps_k = jc.sparse_congestion_solve(*args, **kw)
+        w_p, span_p, steps_p = jc.sparse_congestion_plain(*args, **kw)
+        torch.cuda.synchronize()
+        label = f"Nf={nf} La={la} P={P} threads={threads}"
+        assert torch.equal(w_k, w_p), f"{label}: w differs by {float((w_k - w_p).abs().max())}"
+        assert torch.equal(span_k, span_p) and torch.equal(steps_k, steps_p), label
+        if not early_exit:
+            assert bool((steps_k == N_ITERS).all()), label
+
+
+@pytest.mark.parametrize("k", range(1, jc.MAX_K + 1))
+def test_kernel_bits_every_k(k):
+    """Every K from 1 to 8 (instances over 3, 4 or 8 paths, padding k >= K)
+    on a one-warp and a block lane, against the plain version bit for
+    bit."""
+    _need_card()
+    for j, (nf, la) in enumerate([(8, 16), (40, 64)]):
+        args = _synthetic_batch(4, nf, k, 8, la, seed=10 * k + j)
+        w_k, span_k, steps_k = jc.sparse_congestion_solve(*args, n_iters=N_ITERS)
+        w_p, span_p, steps_p = jc.sparse_congestion_plain(*args, n_iters=N_ITERS)
+        torch.cuda.synchronize()
+        label = f"K={k} Nf={nf} La={la}"
+        assert torch.equal(w_k, w_p), f"{label}: w differs by {float((w_k - w_p).abs().max())}"
+        assert torch.equal(span_k, span_p) and torch.equal(steps_k, steps_p), label
+
+
+@pytest.mark.parametrize("k", [2, 4, 6])
+@pytest.mark.parametrize("P", [4, 16, 32])
+def test_general_instance_bits_on_staged_shapes(monkeypatch, P, k):
+    """The general instance (schedule from device memory, tables in the
+    workspace, row state in shared memory), forced onto lanes a staged
+    instance would take, gives the plain version's bits."""
+    _need_card()
+    plan = jc.launch_plan
+
+    def general(B, Nf, K_, P_, La, n_iters):
+        out = plan(B, Nf, K_, P_, La, n_iters)
+        return dict(out, staged=False, workspace=jc.table_bytes(Nf, K_, P_),
+                    smem=jc.kernel_smem_bytes(Nf, K_, La, P_, n_iters, staged=False))
+
+    monkeypatch.setattr(jc, "launch_plan", general)
+    for j, (nf, la) in enumerate([(8, 16), (40, 100)]):
+        args = _synthetic_batch(4, nf, k, P, la, seed=1000 + 10 * P + j)
+        w_k, span_k, steps_k = jc.sparse_congestion_solve(*args, n_iters=N_ITERS)
+        w_p, span_p, steps_p = jc.sparse_congestion_plain(*args, n_iters=N_ITERS)
+        torch.cuda.synchronize()
+        label = f"K={k} P={P} Nf={nf} La={la}"
+        assert torch.equal(w_k, w_p), f"{label}: w differs by {float((w_k - w_p).abs().max())}"
+        assert torch.equal(span_k, span_p) and torch.equal(steps_k, steps_p), label
+
+
+def test_step_floor_is_below_the_kernels_step():
+    """The step-chain microbenchmark runs, and its floor is no more than the
+    kernel's own time per step on a one-warp batch that runs its budget."""
+    _need_card()
+    args = _synthetic_batch(1, 8, K, 4, 16, seed=7)
+    jc.sparse_congestion_solve(*args, n_iters=2000, early_exit=False)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    jc.sparse_congestion_solve(*args, n_iters=2000, early_exit=False)
+    end.record()
+    end.synchronize()
+    floor = jc.step_floor_ms(K, 8, 4, device="cuda")
+    assert 0 < floor <= start.elapsed_time(end) / 2000
 
 
 # flash attention: (B, S, H, KH, D, window); tests/test_kernels.py's shapes,
@@ -250,6 +369,77 @@ def test_rwkv6_kernel_matches_plain(case, dtype):
     if case[1] <= 256:
         seq, _ = ref.rwkv6_sequential(*args)
         assert ref.row_limit_ratio(got, seq, *SCAN_TOL[dtype]) <= 1.0
+
+
+# the bf16 SSD kernel at every chunk it takes, N and P at both ends of what
+# it takes, with a decay strong enough that exp(cum_i - cum_j) above the
+# diagonal overflows to inf: (B, S, H, P, N, chunk)
+SSD_MMA_CASES = [(2, 256, 3, p, n, q) for q in ssd.CHUNKS for n in (16, 64) for p in (16, 64)]
+
+
+@pytest.mark.parametrize("case", SSD_MMA_CASES)
+def test_ssd_mma_kernel_strong_decay(case):
+    _need_card()
+    B, S, H, P, N, chunk = case
+    rng = np.random.default_rng(sum(case))
+    x = _cuda(rng, (B, S, H, P), torch.bfloat16)
+    dt = torch.nn.functional.softplus(_cuda(rng, (B, S, H)) + 2.0)
+    A = -torch.exp(torch.from_numpy(rng.uniform(2.0, 4.0, H).astype(np.float32)).cuda())
+    Bm, Cm = (_cuda(rng, (B, S, N), torch.bfloat16) for _ in range(2))
+    assert float((dt[0, :chunk, 0] * A[0]).sum()) < -89  # exp(-cum) overflows in a chunk
+    before = ssd.ssd_scan_mma.launches
+    got = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_mma.launches == before + 1
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    want, _ = ssd.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+    assert ref.row_limit_ratio(got, want, *SCAN_TOL[torch.bfloat16]) <= 1.0
+
+
+def _unaligned(t):
+    """A copy of ``t`` whose data starts one element past a 16-byte
+    boundary, so no row of it is 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("N", [12, 40])
+def test_ssd_mma_kernel_unaligned_rows(N):
+    """The bf16 kernel's element-by-element loads, taken where N is not a
+    multiple of 8 or a row of B or C is not 16-byte aligned: against the
+    plain version, and, where N allows 16-byte loads, equal to the aligned
+    result bit for bit."""
+    _need_card()
+    case = (2, 256, 3, 32, N, 64)
+    x, dt, A, Bm, Cm = _ssd_args(case, torch.bfloat16, seed=N)
+    Bu, Cu = _unaligned(Bm), _unaligned(Cm)
+    assert Bu.data_ptr() % 16 and Cu.data_ptr() % 16
+    got = ops.ssd_scan(x, dt, A, Bu, Cu, chunk=64)
+    want, _ = ssd.ssd_chunked(x, dt, A, Bm, Cm, chunk=64)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert ref.row_limit_ratio(got, want, *SCAN_TOL[torch.bfloat16]) <= 1.0
+    aligned = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    if N % 8 == 0:  # the aligned inputs took the 16-byte cp.async loads
+        assert torch.equal(got, aligned)
+    else:
+        assert ref.row_limit_ratio(aligned, want, *SCAN_TOL[torch.bfloat16]) <= 1.0
+
+
+def test_ssd_routes_by_dtype():
+    """bf16 launches the tensor-core kernel, f32 the CUDA-core one; the
+    routing wrapper counts both."""
+    _need_card()
+    case = (1, 128, 2, 32, 16, 32)
+    for dtype, kernel in ((torch.bfloat16, ssd.ssd_scan_mma), (torch.float32, ssd.ssd_scan_f32)):
+        other = ssd.ssd_scan_f32 if kernel is ssd.ssd_scan_mma else ssd.ssd_scan_mma
+        before = ssd.ssd_scan_hsd.launches, kernel.launches, other.launches
+        ops.ssd_scan(*_ssd_args(case, dtype), chunk=32)
+        torch.cuda.synchronize()
+        assert (ssd.ssd_scan_hsd.launches, kernel.launches, other.launches) == (
+            before[0] + 1, before[1] + 1, before[2])
 
 
 def test_rwkv6_kernel_cliff_decay():
