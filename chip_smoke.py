@@ -10,11 +10,12 @@ Phases, in the order they run, each failing hard:
 1. Device: the card's name, count and power limit. No card, no run.
 2. Build: every kernel under ``src/repro_torch/kernels/csrc`` is compiled
    with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
-   together (``-Xptxas -v`` shown). Three libraries are disassembled
+   together (``-Xptxas -v`` shown). Five libraries are disassembled
    (``cuobjdump -sass``, beside ``nvcc`` or Triton's copy): the bf16 flash
    library must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
-   instructions, the bf16 SSD library ``HMMA`` (mma.sync) and ``LDGSTS``
-   (cp.async) ones, each with no ptxas spills; the JRBA library must hold no
+   instructions, the bf16 SSD and RWKV-6 libraries ``HMMA`` (mma.sync) and
+   ``LDGSTS`` (cp.async) ones, the f32 flash library ``FFMA`` and ``LDGSTS``
+   ones, each with no ptxas spills; the JRBA library must hold no
    ``LDL``/``STL`` (local memory) and every kernel of it a 0-byte stack
    frame.
 3. Flash attention against plain: the two CUDA kernels (bf16 on the tensor
@@ -26,14 +27,17 @@ Phases, in the order they run, each failing hard:
    window 512 and 0) and internlm2-1.8b's (H=16, KH=8, D=128), in both
    types, at the S=32768 shapes of the gemma3-1b prefill in bf16, and at
    zamba2-7b's shared attention (H=KH=32, D=112, global; S=4096 in both
-   types, S=32768 in bf16). Kernel, plain version and
+   types, S=32768 in bf16); then with ``causal=False`` (window 0 and > 0)
+   and a scale other than D^-0.5, in both types, at small shapes and at
+   internlm2-1.8b's S=4096. Kernel, plain version and
    ``scaled_dot_product_attention`` (the library yardstick, never on the
    port's path) are timed with CUDA events.
 4. Scans against plain: the SSD kernels (bf16 on the tensor cores,
    ``ssd_scan_mma.cu``; f32 on the CUDA cores, ``ssd_scan.cu``) and the
-   RWKV-6 kernel, through the model-layout
-   wrappers, against their chunked plain versions at zamba2-7b's (H=112,
-   P=N=64, chunk 64) and rwkv6-3b's (H=40, P=64, chunk 16) heads at S=32768
+   RWKV-6 kernels (bf16 on the tensor cores, ``rwkv6_scan_mma.cu``; f32 on
+   the CUDA cores, ``rwkv6_scan.cu``), through the model-layout wrappers,
+   against their chunked plain versions at zamba2-7b's (H=112, P=N=64,
+   chunk 64) and rwkv6-3b's (H=40, P=64, chunk 16) heads at S=32768
    and 4096, then at ``tests/test_kernels.py``'s cases (also against the
    sequential oracles), bf16 and f32, with that file's tolerances (rtol, and
    atol as a share of each output row's root mean square). Kernel and plain
@@ -43,8 +47,8 @@ Phases, in the order they run, each failing hard:
    the port's seeded init and freed before the next: ``prefill`` at B=1,
    S=32768 (the prefill_32k length): time, tokens/s, peak memory, and
    exactly one launch per layer of each kernel's kind (gemma3-1b: 26 bf16
-   flash; zamba2-7b: 68 bf16 SSD and 13 bf16 flash; rwkv6-3b: 32 RWKV-6; the
-   f32 checks of each model the same counts, with flash and SSD on their f32
+   flash; zamba2-7b: 68 bf16 SSD and 13 bf16 flash; rwkv6-3b: 32 bf16
+   RWKV-6; the f32 checks of each model the same counts, on the f32
    kernels). At
    S=4096 the
    last-position logits through the kernels and through their plain versions
@@ -88,13 +92,17 @@ it and read just after; a kernel a path is not expected to launch must show
 replays, each fleet run) must have launched it, each on ``solver="sparse"``
 or the CPU must not have. Each model kernel's main path is the S=32768
 prefill of its model (bf16 flash attention: gemma3-1b's, 26 launches; bf16
-SSD: zamba2-7b's, 68; RWKV-6: rwkv6-3b's, 32); the S=4096 prefills and
+SSD: zamba2-7b's, 68; bf16 RWKV-6: rwkv6-3b's, 32); the S=4096 prefills and
 ``forward`` launch them once per layer, the plain reference runs and the
 serving loops (whose decode is plain PyTorch) not at all. The f32 flash
 kernel's path is gemma3-1b's f32 prefill at S=4096 (26 launches), the f32
-SSD kernel's zamba2-7b's (68). ``flash_attention_hsd.launches`` counts both
-flash kernels and ``ssd_scan_hsd.launches`` both SSD kernels, and each must
-equal their sum on every path.
+SSD kernel's zamba2-7b's (68), the f32 RWKV-6 kernel's rwkv6-3b's (32).
+``flash_attention_hsd.launches``, ``ssd_scan_hsd.launches`` and
+``rwkv6_scan_hsd.launches`` each count their two kernels, and each must
+equal their sum on every path. A bf16 RWKV-6 call counts one launch however
+many grids it runs (three for a sequence of more than one segment); its
+record's ``grids_per_call`` is the count of its grids in the profiled
+rwkv6-3b prefill's trace over its calls there, and must match its plan.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -165,12 +173,19 @@ COUNTERS = {
     "flash_attention": fa.flash_attention_f32,  # f32, CUDA cores
     "ssd_scan_mma": ssd.ssd_scan_mma,  # bf16, tensor cores
     "ssd_scan": ssd.ssd_scan_f32,  # f32, CUDA cores
-    "rwkv6_scan": rw.rwkv6_scan_hsd,
+    "rwkv6_scan_mma": rw.rwkv6_scan_mma,  # bf16, tensor cores
+    "rwkv6_scan": rw.rwkv6_scan_f32,  # f32, CUDA cores
 }
+# the device kernels a launcher's call may run as grids of its own, by the
+# substrings of their names in the profiler's trace
+GRID_KERNELS = {"rwkv6_scan_mma": ("rwkv6_mma_kernel", "rwkv6_pass_states")}
+# grids a call, read from the profiled main-path prefill (prefill_phase)
+GRIDS_PER_CALL: dict[str, float] = {}
 # each dtype-routing wrapper's count is the sum of its kernels' counts
 ROUTED = {
     fa.flash_attention_hsd: ("flash_attention_wgmma", "flash_attention"),
     ssd.ssd_scan_hsd: ("ssd_scan_mma", "ssd_scan"),
+    rw.rwkv6_scan_hsd: ("rwkv6_scan_mma", "rwkv6_scan"),
 }
 
 
@@ -310,6 +325,46 @@ def ssd_mma_evidence(ptxas: str) -> dict:
     return out
 
 
+def rwkv6_mma_evidence(ptxas: str) -> dict:
+    """The bf16 RWKV-6 library's SASS counts (mma.sync, cp.async, ldmatrix,
+    shuffles, barriers, local memory) and ptxas's registers and spills for
+    each (P, value columns, pass) instance; fails unless it runs on the
+    tensor cores, loads by cp.async and spills nothing."""
+    counts = sass_counts("rwkv6_scan_mma", ("HMMA", "LDGSTS", "LDSM", "SHFL", "BAR", "LDL", "STL"))
+    instances = {}
+    for e in ptxas_entries(ptxas, "rwkv6_mma_kernel"):
+        p, ncol, with_y = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", e["entry"]).groups()
+        instances[f"P={p},NCOL={ncol},{'y' if with_y == '1' else 'state'}"] = {
+            k: e[k] for k in ("registers", "spill_stores", "spill_loads", "stack_frame")}
+    out = {"sass": counts, "ptxas": instances}
+    log(f"[build] rwkv6_scan_mma evidence: {json.dumps(out)}")
+    assert counts["HMMA"] > 0 and counts["LDGSTS"] > 0, "no mma.sync or cp.async in RWKV-6"
+    assert len(instances) == 8, f"ptxas reported instances {sorted(instances)}"
+    assert all(i["spill_stores"] == i["spill_loads"] == 0 for i in instances.values()), "spills"
+    assert counts["LDL"] == counts["STL"] == 0, "local memory in the RWKV-6 kernel"
+    return out
+
+
+def flash_f32_evidence(ptxas: str) -> dict:
+    """The f32 flash library's SASS counts (FMAs, cp.async, shared loads,
+    shuffles, barriers, local memory) and ptxas's registers and spills for
+    each (D, rows a thread, kv tile) instance; fails unless it loads by
+    cp.async and spills nothing."""
+    counts = sass_counts("flash_attention", ("FFMA", "LDGSTS", "LDS", "SHFL", "BAR", "LDL", "STL"))
+    instances = {}
+    for e in ptxas_entries(ptxas, "flash_fwd"):
+        d, rm, bk, rg = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", e["entry"]).groups()
+        instances[f"D={d},RM={rm},BK={bk},RG={rg}"] = {
+            k: e[k] for k in ("registers", "spill_stores", "spill_loads", "stack_frame")}
+    out = {"sass": counts, "ptxas": instances}
+    log(f"[build] flash_attention evidence: {json.dumps(out)}")
+    assert counts["FFMA"] > 0 and counts["LDGSTS"] > 0, "no FMAs or cp.async in f32 flash"
+    assert len(instances) == len(fa.HEAD_DIMS), f"ptxas reported instances {sorted(instances)}"
+    assert all(i["spill_stores"] == i["spill_loads"] == 0 for i in instances.values()), "spills"
+    assert counts["LDL"] == counts["STL"] == 0, "local memory in the f32 flash kernel"
+    return out
+
+
 def jrba_evidence(ptxas: str) -> dict:
     """The JRBA library's local-memory instructions (none allowed) and each
     kernel instance's stack frame (0 bytes required), registers and spills."""
@@ -342,6 +397,16 @@ FLASH_SHAPES = [
     (1, 4096, 4, 1, 256, 0),
     (1, 4096, 16, 8, 128, 0),
 ]
+# the keywords the model never passes: (shape, causal, scale); small shapes,
+# then internlm2-1.8b's at S=4096, bf16 and f32 each
+FLASH_KEYWORD_CASES = [
+    ((1, 128, 4, 4, 64, 0), False, None),
+    ((2, 256, 4, 2, 64, 96), False, None),
+    ((1, 333, 4, 1, 256, 100), False, 0.05),
+    ((2, 200, 8, 2, 112, 0), True, 0.3),
+    ((1, 256, 2, 2, 32, 0), False, 0.25),
+    ((1, 4096, 16, 8, 128, 0), False, 0.1),
+]
 # the shapes gemma3-1b's prefill at S=32768 gives the kernel (22 sliding-window
 # layers, 4 global); bf16 only, the record is the first
 PREFILL_SHAPES = [(1, 32768, 4, 1, 256, 512), (1, 32768, 4, 1, 256, 0)]
@@ -355,26 +420,32 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: PEAK_F32}  # tensor-core bf
 SEED = 0
 
 
-def live_pairs(S: int, window: int) -> int:
-    """(q, k) pairs inside the causal band (and window), per batch and head."""
+def live_pairs(S: int, window: int, causal: bool = True) -> int:
+    """(q, k) pairs inside the causal band (all keys when not causal) and the
+    window, per batch and head."""
     q = np.arange(S, dtype=np.int64)
-    n = q + 1 if window <= 0 else np.minimum(q + 1, window)
-    return int(n.sum())
+    last = q + 1 if causal else np.full(S, S, dtype=np.int64)  # keys 0 .. last - 1
+    first = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(S, dtype=np.int64)
+    return int((last - first).sum())
 
 
-def library_attention(q, k, v, window: int):
-    """One PyTorch call computing the same function: SDPA, causal or with a
-    boolean band mask. Timed as a yardstick only; the port never calls it."""
+def library_attention(q, k, v, window: int, causal: bool = True, scale: float | None = None):
+    """One PyTorch call computing the same function: SDPA, causal or not, or
+    with a boolean band mask. Timed as a yardstick only; the port never
+    calls it."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if window <= 0:
-        return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        return sdpa(q, k, v, is_causal=causal, scale=scale, enable_gqa=True)
     S = q.shape[2]
     i = torch.arange(S, device=q.device)
-    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-    return sdpa(q, k, v, attn_mask=band, enable_gqa=True)
+    band = i[None, :] > i[:, None] - window
+    if causal:
+        band &= i[None, :] <= i[:, None]
+    return sdpa(q, k, v, attn_mask=band, scale=scale, enable_gqa=True)
 
 
-def flash_case(shape, dtype, device, reps: int) -> dict:
+def flash_case(shape, dtype, device, reps: int, causal: bool = True,
+               scale: float | None = None) -> dict:
     B, S, H, KH, D, window = shape
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + sum(shape))
@@ -383,29 +454,33 @@ def flash_case(shape, dtype, device, reps: int) -> dict:
         for s in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D))
     )
     chunk = 1024 if S % 1024 == 0 else S
-    got = fa.flash_attention_hsd(q, k, v, window=window)
-    want = fa.flash_attention_plain(q, k, v, window=window, chunk=chunk)
+    kw = dict(causal=causal, window=window, scale=scale)
+    got = fa.flash_attention_hsd(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, chunk=chunk, **kw)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     tol = FLASH_TOL[dtype]
-    assert bool(torch.isfinite(got).all()), f"flash {shape} {dtype}: non-finite output"
+    label = f"flash {shape} causal={causal} scale={scale} {dtype}"
+    assert bool(torch.isfinite(got).all()), f"{label}: non-finite output"
     ratio = row_limit_ratio(got, want, tol)
-    assert ratio <= 1.0, f"flash {shape} {dtype}: error {ratio:.3g} times the limit"
-    lib = library_attention(q, k, v, window)
+    assert ratio <= 1.0, f"{label}: error {ratio:.3g} times the limit"
+    lib = library_attention(q, k, v, window, causal, scale)
     lib_err = float((lib.float() - want.float()).abs().max())
     del lib
-    ms = time_call(fa.flash_attention_hsd, (q, k, v), dict(window=window), reps=reps)
+    ms = time_call(fa.flash_attention_hsd, (q, k, v), kw, reps=reps)
     plain_ms = time_call(
-        fa.flash_attention_plain, (q, k, v), dict(window=window, chunk=chunk), reps=max(1, reps // 3)
+        fa.flash_attention_plain, (q, k, v), dict(kw, chunk=chunk), reps=max(1, reps // 3)
     )
-    library_ms = time_call(library_attention, (q, k, v, window), {}, reps=max(1, reps // 3))
+    library_ms = time_call(library_attention, (q, k, v, window, causal, scale), {},
+                           reps=max(1, reps // 3))
     # bound: q, k, v read once, o written once; 4*D flops per live (q, k) pair
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    flops = 4 * D * live_pairs(S, window) * B * H
+    flops = 4 * D * live_pairs(S, window, causal) * B * H
     bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     out = {
         "kernel": "flash_attention_wgmma" if dtype == torch.bfloat16 else "flash_attention",
-        "shape": {"B": B, "S": S, "H": H, "KH": KH, "D": D, "window": window},
+        "shape": {"B": B, "S": S, "H": H, "KH": KH, "D": D, "window": window,
+                  "causal": causal, "scale": scale},
         "dtype": str(dtype).replace("torch.", ""),
         "max_abs_err": err,
         "tolerance": tol,
@@ -432,6 +507,9 @@ def flash_phase(device) -> list[dict]:
     short, full = ZAMBA_FLASH_SHAPES
     out.append(flash_case(short, torch.float32, device, reps=5))
     out += [flash_case(s, torch.bfloat16, device, reps=3) for s in (short, full)]
+    for shape, causal, scale in FLASH_KEYWORD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            out.append(flash_case(shape, dtype, device, reps=5, causal=causal, scale=scale))
     torch.cuda.empty_cache()
     return out
 
@@ -464,7 +542,7 @@ SCANS = {
 SCAN_KERNEL = {
     ("ssd_scan", torch.bfloat16): "ssd_scan_mma",
     ("ssd_scan", torch.float32): "ssd_scan",
-    ("rwkv6_scan", torch.bfloat16): "rwkv6_scan",
+    ("rwkv6_scan", torch.bfloat16): "rwkv6_scan_mma",
     ("rwkv6_scan", torch.float32): "rwkv6_scan",
 }
 
@@ -572,10 +650,11 @@ CHECK_LEN = 4096
 FORWARD_LAUNCHES = {
     "gemma3-1b": {"flash_attention_wgmma": 26},
     "zamba2-7b": {"ssd_scan_mma": 68, "flash_attention_wgmma": 13},
-    "rwkv6-3b": {"rwkv6_scan": 32},
+    "rwkv6-3b": {"rwkv6_scan_mma": 32},
 }
-# at f32 the same layers launch the f32 flash and SSD kernels instead
-F32_KERNEL = {"flash_attention_wgmma": "flash_attention", "ssd_scan_mma": "ssd_scan"}
+# at f32 the same layers launch the f32 flash, SSD and RWKV-6 kernels instead
+F32_KERNEL = {"flash_attention_wgmma": "flash_attention", "ssd_scan_mma": "ssd_scan",
+              "rwkv6_scan_mma": "rwkv6_scan"}
 F32_LAUNCHES = {
     arch: {F32_KERNEL.get(k, k): n for k, n in kinds.items()}
     for arch, kinds in FORWARD_LAUNCHES.items()
@@ -613,8 +692,8 @@ def plain_kernels():
     versions (on the card) instead of the kernels, for a reference run."""
     saved = model_attention.flash_attention, ops.ssd_scan, ops.rwkv6_scan
 
-    def attention(q, k, v, *, window=0, chunk=1024):
-        return fa.blockwise_attention(q, k, v, window=window, chunk=chunk)
+    def attention(q, k, v, *, causal=True, window=0, chunk=1024):
+        return fa.blockwise_attention(q, k, v, window=window, chunk=chunk, causal=causal)
 
     model_attention.flash_attention = attention
     ops.ssd_scan, ops.rwkv6_scan = SCANS["ssd_scan"][1], SCANS["rwkv6_scan"][1]
@@ -624,11 +703,13 @@ def plain_kernels():
         model_attention.flash_attention, ops.ssd_scan, ops.rwkv6_scan = saved
 
 
-def profile_window(label: str, card: str, fn, *args) -> dict:
+def profile_window(label: str, card: str, fn, *args, grids: dict | None = None) -> dict:
     """Where one window's time goes: ``torch.profiler`` kernel intervals on
     the card, their union over the host's wall clock (the device's busy
     share; the profiler's own host cost inflates the wall clock of
-    host-bound windows), and the kernels that took the most device time."""
+    host-bound windows), and the kernels that took the most device time.
+    ``grids`` maps a name to substrings of kernel names: the result's
+    ``device_grids`` counts the device launches whose name holds one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -658,6 +739,9 @@ def profile_window(label: str, card: str, fn, *args) -> dict:
         "device_kernels": len(spans),
         "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top],
     }
+    if grids:
+        out["device_grids"] = {key: sum(1 for _, _, name in spans if any(s in name for s in subs))
+                               for key, subs in grids.items()}
     log(f"[profile] {label}: {json.dumps(out)} [{card}]")
     return out
 
@@ -723,7 +807,14 @@ def prefill_phase(arch: str, device, card) -> tuple:
                                        params, cfg, short)
     logits_close(f"{arch} prefill S={CHECK_LEN} kernel vs plain", k_logits, p_logits,
                  LIMITS[arch]["prefill"], min_top1=1.0)
-    profile_window(f"{arch} prefill S={PREFILL_LEN}", card, prefill, params, cfg, tokens)
+    calls = {name: COUNTERS[name].launches for name in GRID_KERNELS}
+    prof = profile_window(f"{arch} prefill S={PREFILL_LEN}", card, prefill, params, cfg, tokens,
+                          grids=GRID_KERNELS)
+    for name in GRID_KERNELS:
+        calls[name] = COUNTERS[name].launches - calls[name]
+        if calls[name]:  # the launcher's calls in the profiled prefill
+            GRIDS_PER_CALL[name] = prof["device_grids"][name] / calls[name]
+            log(f"[profile] {name}: {prof['device_grids'][name]} grids in {calls[name]} calls")
     by_path = {
         name: {f"{arch}:prefill_{PREFILL_LEN}": counts[name],
                f"{arch}:prefill_{CHECK_LEN}": k_counts[name]}
@@ -939,6 +1030,8 @@ SCAN_SOURCES = {
     "ssd_scan_mma": ("src/repro_torch/kernels/csrc/ssd_scan_mma.cu",
                      "src/repro/kernels/ssd.py:23"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu", "src/repro/kernels/ssd.py:23"),
+    "rwkv6_scan_mma": ("src/repro_torch/kernels/csrc/rwkv6_scan_mma.cu",
+                       "src/repro/kernels/rwkv6.py:22"),
     "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6.py:22"),
 }
@@ -1323,6 +1416,8 @@ def main() -> int:
     ptxas = build_all()
     evidence = wgmma_evidence(ptxas["flash_attention_wgmma"])
     ssd_evidence = ssd_mma_evidence(ptxas["ssd_scan_mma"])
+    rwkv_evidence = rwkv6_mma_evidence(ptxas["rwkv6_scan_mma"])
+    f32_flash_evidence = flash_f32_evidence(ptxas["flash_attention"])
     jrba_sass = jrba_evidence(ptxas["jrba_congestion"])
     flash_timings = flash_phase(device)
     log(f"[time] after flash phase {time.perf_counter() - t_start:.1f} s")
@@ -1363,9 +1458,17 @@ def main() -> int:
                      model_paths["flash_attention_wgmma"], evidence),
         flash_record("flash_attention", f32,
                      model_paths["flash_attention"][f"gemma3-1b:f32_prefill_{CHECK_LEN}"],
-                     model_paths["flash_attention"]),
+                     model_paths["flash_attention"], {"evidence": f32_flash_evidence}),
     ]
     ssd_rows = scan_timings["ssd_scan"]
+    rwkv_rows = scan_timings["rwkv6_scan"]
+    # the bf16 RWKV-6 kernel's grids a call, counted in the profiled
+    # rwkv6-3b prefill: three when its plan cuts the sequence into more than
+    # one segment (end states, passing, y), else one
+    B_, S_, H_, P_, Q_ = RWKV_MODEL[0]
+    rwkv_grids = GRIDS_PER_CALL["rwkv6_scan_mma"]
+    planned = 3 if rw.segment_chunks(B_, H_, S_, P_, Q_) < S_ // Q_ else 1
+    assert rwkv_grids == planned, f"rwkv6_scan_mma ran {rwkv_grids} grids a call, planned {planned}"
     scans = [
         scan_record("ssd_scan_mma", [t for t in ssd_rows if t["kernel"] == "ssd_scan_mma"],
                     model_paths["ssd_scan_mma"][f"zamba2-7b:{main_path}"],
@@ -1373,8 +1476,12 @@ def main() -> int:
         scan_record("ssd_scan", [t for t in ssd_rows if t["kernel"] == "ssd_scan"],
                     model_paths["ssd_scan"][f"zamba2-7b:f32_prefill_{CHECK_LEN}"],
                     model_paths["ssd_scan"]),
-        scan_record("rwkv6_scan", scan_timings["rwkv6_scan"],
-                    model_paths["rwkv6_scan"][f"rwkv6-3b:{main_path}"],
+        scan_record("rwkv6_scan_mma", [t for t in rwkv_rows if t["kernel"] == "rwkv6_scan_mma"],
+                    model_paths["rwkv6_scan_mma"][f"rwkv6-3b:{main_path}"],
+                    model_paths["rwkv6_scan_mma"],
+                    {"evidence": rwkv_evidence, "grids_per_call": rwkv_grids}),
+        scan_record("rwkv6_scan", [t for t in rwkv_rows if t["kernel"] == "rwkv6_scan"],
+                    model_paths["rwkv6_scan"][f"rwkv6-3b:f32_prefill_{CHECK_LEN}"],
                     model_paths["rwkv6_scan"]),
     ]
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Probe the port's JRBA congestion kernel and bf16 SSD scan on one NVIDIA GPU.
+"""Probe the port's JRBA congestion kernel, bf16 SSD scan, flash attention
+kernels and RWKV-6 scans on one NVIDIA GPU.
 
 Usage, from the repository root on a machine with a CUDA card::
 
-    python3 scripts/torch_kernel_probe.py [--parts jrba ssd] [--stream-seeds 0]
-        [--out build/kernel_probe.json]
+    python3 scripts/torch_kernel_probe.py [--parts jrba ssd flash rwkv]
+        [--stream-seeds 0] [--out build/kernel_probe.json]
 
 Builds the parts' libraries (``jrba_congestion``; ``ssd_scan_mma`` and
-``ssd_scan``) from ``src/repro_torch/kernels/csrc`` (``nvcc -Xptxas -v``, all
-at once), prints their SASS and ptxas evidence, then:
+``ssd_scan``; ``flash_attention`` and ``flash_attention_wgmma``;
+``rwkv6_scan_mma`` and ``rwkv6_scan``) from ``src/repro_torch/kernels/csrc``
+(``nvcc -Xptxas -v``, all at once), prints their SASS and ptxas evidence,
+then:
 
 * JRBA: captures the programs the port's ``OnlineScheduler`` solves on the
   kernel (12 scenarios, OTFS and OTFA, ``--stream-seeds``), and on batches of
@@ -23,10 +26,27 @@ at once), prints their SASS and ptxas evidence, then:
 * SSD: the bf16 kernel against its plain version at zamba2-7b's heads
   (S=32768 and 4096) and at ``tests/test_kernels.py``'s cases, timed, and
   through diagnostic builds that fix the value columns a block takes (16, 32
-  or 64, ``-DSSD_MMA_BLOCK_COLS``).
+  or 64);
+* flash: both kernels against their plain version, timed beside SDPA, at
+  ``chip_smoke.py``'s S=4096 shapes in f32, gemma3-1b's S=32768 shapes in
+  bf16, and the ``causal=False`` / ``scale`` cases; then the f32 kernel
+  through diagnostic builds (rows a thread, row groups a block, kv tile,
+  unrolling) at the S=4096 shapes; the f32 kernel's two products apart
+  (builds that run S = Q K^T alone, P V alone, or neither) at D=112 and
+  D=128, each with the SASS counts of its instance; and the card's SM clock
+  and power while the kernel runs back to back;
+* RWKV-6: both kernels against their plain version at rwkv6-3b's heads
+  (S=32768 and 4096) and at ``tests/test_kernels.py``'s cases, timed, then
+  the bf16 kernel at S=32768 with the sequence cut into segments of other
+  lengths (the port's plan replaced) and through diagnostic builds that fix
+  the value columns a warp takes (16 or 64, with the segment plan counting
+  that many warps).
 
-Every diagnostic build is launched through the port's own wrapper: the probe
-only swaps the library the wrapper loads, or the launch plan it computes.
+A diagnostic build is the port's source with a few lines replaced, written
+under the build directory and compiled there; the port's sources carry no
+build options for it. Every such build is launched through the port's own
+wrapper: the probe only swaps the library the wrapper loads, or the plan it
+computes.
 Every check runs and is reported; the script exits 1 if any failed. The card's
 name and power limit are printed beside the numbers; the whole result goes to
 ``--out`` as JSON.
@@ -36,6 +56,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import re
 import subprocess
 import sys
 import time
@@ -54,11 +75,15 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.core import JRBAEngine  # noqa: E402
 from repro_torch.core.jrba import sparse_batch_inputs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import jrba_congestion as jc  # noqa: E402
+from repro_torch.kernels import rwkv6 as rw  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.obs.trace import dumps_strict  # noqa: E402
 
-LIBRARIES = {"jrba": ("jrba_congestion",), "ssd": ("ssd_scan_mma", "ssd_scan")}
+LIBRARIES = {"jrba": ("jrba_congestion",), "ssd": ("ssd_scan_mma", "ssd_scan"),
+             "flash": ("flash_attention", "flash_attention_wgmma"),
+             "rwkv": ("rwkv6_scan_mma", "rwkv6_scan")}
 # diagnostic builds of the JRBA source: what each changes says what its
 # arithmetic costs (the port builds only _build.NVCC_FLAGS)
 JRBA_VARIANTS = {
@@ -67,19 +92,85 @@ JRBA_VARIANTS = {
     "approx_sqrt": ("-prec-sqrt=false",),
     "approx_div_sqrt": ("-prec-div=false", "-prec-sqrt=false"),
 }
-# diagnostic builds of the bf16 SSD source at one block width each
-SSD_VARIANTS = {f"block_cols_{pb}": (f"-DSSD_MMA_BLOCK_COLS={pb}",) for pb in (16, 32, 64)}
+# Diagnostic builds: each is a list of (text, replacement) edits of the
+# port's source, every text of which must occur in it.
+# the bf16 SSD source at one block width each
+SSD_DISPATCH = ("  if (P % 32 == 0) return dispatch_q<32>(Q, x, dtf, Af, Bm, Cm, y, B, H, S, P, N, "
+                "st, vec, s);\n")
+SSD_VARIANTS = {f"block_cols_{pb}": [(SSD_DISPATCH, f"  if (P % {pb} != 0) return 1;\n"
+                                      f"  return dispatch_q<{pb}>(Q, x, dtf, Af, Bm, Cm, y, B, H, "
+                                      "S, P, N, st, vec, s);\n")] for pb in (16, 32, 64)}
+# the bf16 RWKV-6 source with a warp width of 16 or 64 at P=64; the probe
+# plans the segments for that many warps (rw.value_cols patched alike)
+RWKV_COLS = (16, 64)
+RWKV_VARIANTS = {f"cols_{nc}": [
+    ("ncol != (P % 32 == 0 ? 32 : 16)", f"ncol != (P == 64 ? {nc} : P % 32 == 0 ? 32 : 16)"),
+    ("default: return launch<64, 32>(", f"default: return launch<64, {nc}>("),
+] for nc in RWKV_COLS}
+# the f32 flash source: rows a thread, kv tile and row groups at D <= 128,
+# and the unrolling of both product loops
+FLASH_TILE = ", 8, 64, 16>("
+FLASH_VARIANTS = {
+    "rm_4": [(FLASH_TILE, ", 4, 64, 16>(")], "bk_32": [(FLASH_TILE, ", 8, 32, 16>(")],
+    "unroll_2": [("#pragma unroll 8\n", "#pragma unroll 2\n")],
+    "unroll_4": [("#pragma unroll 8\n", "#pragma unroll 4\n")],
+    "rg_24": [(FLASH_TILE, ", 8, 64, 24>(")],
+    "rg_24_unroll_4": [(FLASH_TILE, ", 8, 64, 24>("), ("#pragma unroll 8\n", "#pragma unroll 4\n")],
+    "rg_24_unroll_2": [(FLASH_TILE, ", 8, 64, 24>("), ("#pragma unroll 8\n", "#pragma unroll 2\n")],
+}
+# the f32 flash source with a product loop emptied: S = Q K^T alone (P V
+# skipped, the output wrong), P V alone (every score 0), neither (loads,
+# softmax and barriers only)
+FLASH_S_LOOP = ("for (int d = 0; d < D; d += 4) {", "for (int d = 0; d < 0; d += 4) {")
+FLASH_PV_LOOP = ("for (int c2 = 0; c2 < BK; ++c2) {", "for (int c2 = 0; c2 < 0; ++c2) {")
+FLASH_SPLIT = {"s_only": [FLASH_PV_LOOP], "pv_only": [FLASH_S_LOOP],
+               "neither": [FLASH_S_LOOP, FLASH_PV_LOOP]}
+# the shapes the split is timed at: zamba2-7b's D=112 and internlm2's D=128
+FLASH_SPLIT_SHAPES = ((1, 4096, 32, 32, 112, 0), (1, 4096, 16, 8, 128, 0))
+# SASS opcodes counted in each instance of a split build, by every width
+# and modifier they come with (LDS and LDS.128 apart)
+SPLIT_OPS = ("FFMA", "LDS", "LDGSTS", "BAR", "SHFL")
+# segment lengths (chunks) the bf16 RWKV-6 kernel is timed at, beside the plan's
+RWKV_SEGMENTS = (16, 32, 64, 128, 256)
 
 
-def build_variant(name: str, label: str, flags: tuple) -> ctypes.CDLL:
-    """``csrc/<name>.cu`` built with ``flags`` added, into the build
-    directory, and loaded."""
+def build_variant(name: str, label: str, edits: list) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` with ``edits`` applied (each text replaced
+    wherever it occurs), written and built in the build directory, and
+    loaded."""
     src, _ = _build._target(name)
-    lib = _build.BUILD_DIR / f"{name}_variant_{label}.so"
+    text = src.read_text()
+    for old, new in edits:
+        if old not in text:
+            raise ValueError(f"{name} {label}: {old!r} is not in the source")
+        text = text.replace(old, new)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(src)],
-                   check=True, capture_output=True, text=True)
+    variant = _build.BUILD_DIR / f"{name}_variant_{label}.cu"
+    variant.write_text(text)
+    lib = variant.with_suffix(".so")
+    out = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                          str(lib), str(variant)], check=True, capture_output=True, text=True)
+    spills = [e for e in cs.ptxas_entries(out.stdout + out.stderr)
+              if e["spill_stores"] or e["spill_loads"]]
+    print(f"[build] {name} {label}: {len(spills)} entries spill "
+          f"{[(e['entry'][-40:], e['spill_stores']) for e in spills]}", flush=True)
     return ctypes.CDLL(str(lib))
+
+
+def instance_sass(lib_path: Path, instance: str, ops: tuple) -> dict:
+    """How often each SASS opcode whose base is in ``ops`` appears, with its
+    suffixes (``LDS`` and ``LDS.128`` count apart), in the kernel whose
+    mangled name holds ``instance``."""
+    sass = subprocess.run([str(cs.cuobjdump_path()), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = next(f for f in funcs[1:] if instance in f.split("\n", 1)[0])
+    opcodes = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)
+    counts: dict[str, int] = {}
+    for o in opcodes:
+        if o.split(".")[0] in ops:
+            counts[o] = counts.get(o, 0) + 1
+    return dict(sorted(counts.items()))
 
 
 def build_variants(name: str, variants: dict) -> dict:
@@ -181,6 +272,132 @@ def ssd_block_cols(shape, device) -> dict:
     return out
 
 
+def flash_inputs(shape, device):
+    B, S, H, KH, D, window = shape
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cs.SEED + sum(shape))
+    return tuple(torch.randn(sz, generator=gen, device=device)
+                 for sz in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D)))
+
+
+def flash_split(device) -> dict:
+    """The f32 flash kernel's two products timed apart: builds that run
+    S = Q K^T alone, P V alone or neither, beside the port's build, at
+    :data:`FLASH_SPLIT_SHAPES`, with each build's SASS counts of that
+    shape's instance (FFMA, 32-bit and 128-bit shared loads, cp.async,
+    barriers, shuffles)."""
+    libs = build_variants("flash_attention", FLASH_SPLIT)
+    paths = {"port": _build.build("flash_attention")[0],
+             **{n: _build.BUILD_DIR / f"flash_attention_variant_{n}.so" for n in FLASH_SPLIT}}
+    out = {}
+    for shape in FLASH_SPLIT_SHAPES:
+        B, S, H, KH, D, window = shape
+        q, k, v = flash_inputs(shape, device)
+        kw = dict(window=window)
+        instance = f"flash_fwdILi{D}ELi8ELi64ELi16E"
+        row = {"port": {"ms": cs.time_call(fa.flash_attention_hsd, (q, k, v), kw, reps=10),
+                        "sass": instance_sass(paths["port"], instance, SPLIT_OPS)}}
+        for name, lib in libs.items():
+            with wrappers_load("flash_attention", lib):
+                row[name] = {"ms": cs.time_call(fa.flash_attention_hsd, (q, k, v), kw, reps=10),
+                             "sass": instance_sass(paths[name], instance, SPLIT_OPS)}
+        # each product's share: the build with it alone less the build with neither
+        for part in ("s_only", "pv_only"):
+            row[f"{part}_less_neither"] = {
+                "ms": row[part]["ms"] - row["neither"]["ms"],
+                "sass": {op: row[part]["sass"].get(op, 0) - row["neither"]["sass"].get(op, 0)
+                         for op in sorted({*row[part]["sass"], *row["neither"]["sass"]})}}
+        out[str(list(shape))] = row
+        print(f"[flash] {list(shape)} f32 products apart: {dumps_strict(row)}", flush=True)
+    return out
+
+
+def flash_variants(shapes, device) -> dict:
+    """The f32 flash kernel's milliseconds through each diagnostic build at
+    ``shapes``, beside the port's build, and its largest difference from the
+    port's output."""
+    out = {}
+    for shape in shapes:
+        q, k, v = flash_inputs(shape, device)
+        kw = dict(window=shape[-1])
+        port = fa.flash_attention_hsd(q, k, v, **kw)
+        row = {"port_ms": cs.time_call(fa.flash_attention_hsd, (q, k, v), kw, reps=5)}
+        for name, lib in built_flash.items():
+            with wrappers_load("flash_attention", lib):
+                row[name] = {
+                    "ms": cs.time_call(fa.flash_attention_hsd, (q, k, v), kw, reps=5),
+                    "max_abs_diff_from_port": float(
+                        (fa.flash_attention_hsd(q, k, v, **kw) - port).abs().max()),
+                }
+        out[str(list(shape))] = row
+        print(f"[flash] {list(shape)} f32 variants: {dumps_strict(row)}", flush=True)
+    return out
+
+
+built_flash: dict = {}
+
+
+def clocks_under_load(shape, device, seconds: float = 3.0) -> dict:
+    """The card's SM clock and power draw (``nvidia-smi``, every 100 ms)
+    while the f32 flash kernel runs back to back at ``shape``, beside the
+    kernel's time there: what the 67 TFLOP/s f32 peak (at the boost clock)
+    assumes against what the card sustains."""
+    B, S, H, KH, D, window = shape
+    q, k, v = (torch.randn(sz, device=device)
+               for sz in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D)))
+    ms = cs.time_call(fa.flash_attention_hsd, (q, k, v), dict(window=window), reps=5)
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,power.limit",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            for _ in range(20):
+                fa.flash_attention_hsd(q, k, v, window=window)
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        lines = smi.communicate()[0].strip().splitlines()
+    rows = [[float(x) for x in ln.split(",")] for ln in lines if ln.count(",") == 3]
+    rows = rows[len(rows) // 4:]  # the steady part of the window
+    out = {"shape": list(shape), "ms": ms, "samples": len(rows),
+           "sm_clock_mhz_mean": sum(r[0] for r in rows) / max(len(rows), 1),
+           "sm_clock_max_mhz": rows[0][1] if rows else None,
+           "power_w_mean": sum(r[2] for r in rows) / max(len(rows), 1),
+           "power_limit_w": rows[0][3] if rows else None}
+    print(f"[flash] f32 clocks under load: {dumps_strict(out)}", flush=True)
+    return out
+
+
+def rwkv_variants(shape, device) -> dict:
+    """The bf16 RWKV-6 kernel's milliseconds at other segment lengths and
+    warp widths, and its largest difference from the port's plan and build."""
+    B, S, H, P, Q = shape
+    args = cs.scan_inputs("rwkv6_scan", shape, torch.bfloat16, device)
+    t = lambda a: a.transpose(1, 2)  # noqa: E731
+    hsd = (t(args[0]), t(args[1]), t(args[2]), t(args[3]), args[4])
+    port = rw.rwkv6_scan_hsd(*hsd, chunk=Q)
+    out = {"plan_segment_chunks": rw.segment_chunks(B, H, S, P, Q),
+           "port_ms": cs.time_call(rw.rwkv6_scan_hsd, hsd, dict(chunk=Q), reps=5)}
+
+    def measured():
+        ms = cs.time_call(rw.rwkv6_scan_hsd, hsd, dict(chunk=Q), reps=5)
+        diff = float((rw.rwkv6_scan_hsd(*hsd, chunk=Q).float() - port.float()).abs().max())
+        return {"ms": ms, "max_abs_diff_from_port": diff}
+
+    for seg in RWKV_SEGMENTS:
+        with mock.patch.object(rw, "segment_chunks", lambda *a, seg=seg: seg):
+            out[f"segment_{seg}"] = measured()
+    for (name, lib), nc in zip(build_variants("rwkv6_scan_mma", RWKV_VARIANTS).items(),
+                               RWKV_COLS):
+        with wrappers_load("rwkv6_scan_mma", lib), mock.patch.object(
+                rw, "value_cols", lambda P, nc=nc: nc if P == 64 else 32 if P % 32 == 0 else 16):
+            out[name] = {"segment_chunks": rw.segment_chunks(B, H, S, P, Q), **measured()}
+    print(f"[rwkv] {list(shape)} variants: {dumps_strict(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parts", nargs="+", choices=sorted(LIBRARIES), default=sorted(LIBRARIES))
@@ -232,6 +449,34 @@ def main() -> int:
                 check(f"ssd {str(dt)[6:]} {shape}", cs.scan_case, "ssd_scan", shape, dt, device,
                       5, True)
         check("ssd block cols", ssd_block_cols, cs.SSD_MODEL[0], device)
+    if "flash" in opts.parts:
+        check("wgmma_evidence", cs.wgmma_evidence, ptxas["flash_attention_wgmma"])
+        check("flash_f32_evidence", cs.flash_f32_evidence, ptxas["flash_attention"])
+        for shape in cs.FLASH_SHAPES[-3:] + cs.ZAMBA_FLASH_SHAPES[:1]:
+            check(f"flash f32 {shape}", cs.flash_case, shape, torch.float32, device, 5)
+        for shape in cs.PREFILL_SHAPES:
+            check(f"flash bf16 {shape}", cs.flash_case, shape, torch.bfloat16, device, 5)
+        for shape, causal, scale in cs.FLASH_KEYWORD_CASES:
+            for dt in (torch.bfloat16, torch.float32):
+                check(f"flash {str(dt)[6:]} {shape} causal={causal} scale={scale}",
+                      cs.flash_case, shape, dt, device, 5, causal, scale)
+        check("flash variant builds", lambda: built_flash.update(
+            build_variants("flash_attention", FLASH_VARIANTS)))
+        check("flash variants", flash_variants, cs.FLASH_SHAPES[-3:] + cs.ZAMBA_FLASH_SHAPES[:1],
+              device)
+        check("flash split", flash_split, device)
+        check("flash clocks", clocks_under_load, cs.ZAMBA_FLASH_SHAPES[0], device)
+    if "rwkv" in opts.parts:
+        check("rwkv_evidence", cs.rwkv6_mma_evidence, ptxas["rwkv6_scan_mma"])
+        for shape in cs.RWKV_MODEL:
+            for dt in (torch.bfloat16, torch.float32):
+                check(f"rwkv {str(dt)[6:]} {shape}", cs.scan_case, "rwkv6_scan", shape, dt,
+                      device, 5, False)
+        for shape in cs.RWKV_CASES:
+            for dt in (torch.bfloat16, torch.float32):
+                check(f"rwkv {str(dt)[6:]} {shape}", cs.scan_case, "rwkv6_scan", shape, dt,
+                      device, 5, True)
+        check("rwkv variants", rwkv_variants, cs.RWKV_MODEL[0], device)
 
     print(card, flush=True)
     Path(opts.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,5 +1,5 @@
-// Causal GQA flash attention (forward) in bf16 on Hopper's tensor cores, with
-// an optional sliding window.
+// GQA flash attention (forward) in bf16 on Hopper's tensor cores, causal or
+// not, with an optional sliding window.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:29
 // (_flash_kernel, launched by flash_attention_hsd at :95 through
@@ -10,10 +10,11 @@
 //
 // Computes what that kernel and csrc/flash_attention.cu (the f32 path)
 // compute: q (B, H, S, D), k and v (B, KH, S, D), o (B, H, S, D), all bf16
-// and contiguous; kv head h / (H / KH); scale D^-0.5 applied to the f32
-// scores; mask pos_k <= pos_q, and pos_k > pos_q - window when window > 0,
-// with a -1e30 sentinel; each row ends divided by max(l, 1e-30). Any S
-// (ragged edges masked); Sq == Skv only (the wrapper enforces it).
+// and contiguous; kv head h / (H / KH); the caller's scale (D^-0.5 by
+// default) applied to the f32 scores; mask pos_k <= pos_q when causal, and
+// pos_k > pos_q - window when window > 0, with a -1e30 sentinel; each row
+// ends divided by max(l, 1e-30). Any S (ragged edges masked); Sq == Skv only
+// (the wrapper enforces it).
 //
 // What bounds it on Hopper: operations at the global shapes (4*D flops a
 // live (q, k) pair against q, k, v and o moved once: at S = 32768 the
@@ -44,7 +45,7 @@
 //     band, the element mask runs only on tiles that cross an edge (the
 //     diagonal, the window's start, the end of S), and the heaviest (latest)
 //     q tiles are scheduled first;
-//   * the softmax runs in base 2 on scores pre-multiplied by D^-0.5 * log2(e)
+//   * the softmax runs in base 2 on scores pre-multiplied by scale * log2(e)
 //     (one multiply, one subtract, one ex2.approx per score); m and l stay in
 //     f32, l sums the f32 probabilities, and only the copy of P fed to the
 //     P.V product is rounded to bf16 -- the one rounding the f32 plain
@@ -288,7 +289,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 }
 
 // The CTA's tile: the heaviest (latest) q tiles first, every (batch, head) of
-// a tile together; the kv tiles of BK keys that meet its causal/window band.
+// a tile together; the kv tiles of BK keys that meet its causal/window band
+// (when not causal, every tile from the window's start to the end of S).
 // Each warpgroup computes it after its setmaxnreg, so no value lives across
 // the change of register budget.
 struct Tile {
@@ -296,7 +298,7 @@ struct Tile {
 };
 
 template <int BK>
-__device__ __forceinline__ Tile tile_of(int H, int KH, int S, int window) {
+__device__ __forceinline__ Tile tile_of(int H, int KH, int S, int window, int causal) {
   const int nq = (S + BQ - 1) / BQ;
   const int BH = gridDim.x / nq;
   Tile t;
@@ -305,10 +307,10 @@ __device__ __forceinline__ Tile tile_of(int H, int KH, int S, int window) {
   t.h = t.bh % H;
   t.kh = t.h / (H / KH);
   t.q0 = (nq - 1 - blockIdx.x / BH) * BQ;
-  const int q_last = min(t.q0 + BQ, S) - 1;
+  const int k_last = causal ? min(t.q0 + BQ, S) - 1 : S - 1;
   const int k_first = window > 0 ? max(0, t.q0 - window + 1) : 0;
   t.t0 = k_first / BK;
-  t.ntiles = q_last / BK - t.t0 + 1;
+  t.ntiles = k_last / BK - t.t0 + 1;
   return t;
 }
 
@@ -316,7 +318,7 @@ template <int DP, int BK, int STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int H,
-                int KH, int S, int D, int window, float scale_log2) {
+                int KH, int S, int D, int window, int causal, float scale_log2) {
   using L = Layout<DP, BK, STAGES>;
   static_assert(DP % COLS == 0 && BK % 16 == 0, "tile shapes");
   extern __shared__ uint8_t smem_raw[];
@@ -347,7 +349,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     // producer: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 0) {
-      const Tile t = tile_of<BK>(H, KH, S, window);
+      const Tile t = tile_of<BK>(H, KH, S, window, causal);
       mbar_expect_tx(q_full, L::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < DP / COLS; ++c)
@@ -372,7 +374,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 
   // consumers: warpgroup cw owns rows q0 + 64*cw .. +63
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
-  const Tile t = tile_of<BK>(H, KH, S, window);
+  const Tile t = tile_of<BK>(H, KH, S, window, causal);
   const int cw = wg - 1;
   const int tid = threadIdx.x - 128 * wg;
   const int warp = tid / 32, lane = tid % 32;
@@ -393,7 +395,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const uint32_t parity = (j / STAGES) & 1;
     const int k0 = (t.t0 + j) * BK;
     // does the tile meet this warpgroup's band at all?
-    const bool live = qw0 < S && k0 <= qw_last && !(window > 0 && k0 + BK - 1 <= qw0 - window);
+    const bool live =
+        qw0 < S && (!causal || k0 <= qw_last) && !(window > 0 && k0 + BK - 1 <= qw0 - window);
     mbar_wait(k_full(s), parity);
     if (live) {
       // Q (this warpgroup's 64 rows) and K, both K-major: a k-step of 16
@@ -414,16 +417,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       reg_fence(sc);
 
       // scores in log2 units; the element mask only where the tile crosses
-      // the diagonal, the window's start or the end of S
-      const bool edge =
-          k0 + BK - 1 > qw0 || k0 + BK > S || (window > 0 && k0 <= qw_last - window);
+      // the diagonal (when causal), the window's start or the end of S
+      const bool edge = (causal && k0 + BK - 1 > qw0) || k0 + BK > S ||
+                        (window > 0 && k0 <= qw_last - window);
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
         float u = sc[i] * scale_log2;
         if (edge) {
           const int pq = row0 + 8 * ((i >> 1) & 1);
           const int pk = k0 + 8 * (i >> 2) + col0 + (i & 1);
-          const bool in = pk <= pq && pk < S && (window <= 0 || pk > pq - window);
+          const bool in = (!causal || pk <= pq) && pk < S && (window <= 0 || pk > pq - window);
           u = in ? u : NEG_INF;
         }
         sc[i] = u;
@@ -541,8 +544,8 @@ int tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B
 
 template <int DP, int BK, int STAGES>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KH, int S,
-           int D, int window, float scale, int block_k, int stages, int smem, int grid,
-           cudaStream_t stream) {
+           int D, int window, int causal, float scale, int block_k, int stages, int smem,
+           int grid, cudaStream_t stream) {
   using L = Layout<DP, BK, STAGES>;
   const int tiles = (S + BQ - 1) / BQ;
   if (block_k != BK || stages != STAGES || smem != L::SMEM || grid != tiles * B * H)
@@ -556,33 +559,35 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (e != cudaSuccess) return (int)e;
   flash_fwd_wgmma<DP, BK, STAGES><<<grid, THREADS, L::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, KH, S, D, window, scale * LOG2E);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, KH, S, D, window, causal != 0,
+      scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches the kernel instance of the plan (d_pad, block_k, stages,
-// smem_bytes, grid) that kernels/flash_attention.py computed. Returns 0 on
+// smem_bytes, grid) that kernels/flash_attention.py computed; causal is 0 or
+// 1, scale multiplies the f32 scores. Returns 0 on
 // success, a cudaError_t code, PLAN_MISMATCH (-1) when the plan is not the
 // compiled instance's, or ENCODE_ERROR (10000) + the CUresult of a failed
 // cuTensorMapEncodeTiled. Does not synchronise.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                                             int B, int H, int KH, int S, int D, int window,
-                                            float scale, int d_pad, int block_k, int stages,
-                                            int smem_bytes, int grid, void* stream) {
+                                            int causal, float scale, int d_pad, int block_k,
+                                            int stages, int smem_bytes, int grid, void* stream) {
   if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || S < 1 || D < 8 || D % 8 != 0 || D > d_pad)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d_pad) {
     case 64:
-      return launch<64, 128, 2>(q, k, v, o, B, H, KH, S, D, window, scale, block_k, stages,
+      return launch<64, 128, 2>(q, k, v, o, B, H, KH, S, D, window, causal, scale, block_k, stages,
                                 smem_bytes, grid, st);
     case 128:
-      return launch<128, 128, 2>(q, k, v, o, B, H, KH, S, D, window, scale, block_k, stages,
+      return launch<128, 128, 2>(q, k, v, o, B, H, KH, S, D, window, causal, scale, block_k, stages,
                                  smem_bytes, grid, st);
     case 256:
-      return launch<256, 64, 2>(q, k, v, o, B, H, KH, S, D, window, scale, block_k, stages,
+      return launch<256, 64, 2>(q, k, v, o, B, H, KH, S, D, window, causal, scale, block_k, stages,
                                 smem_bytes, grid, st);
     default:
       return PLAN_MISMATCH;

@@ -17,8 +17,8 @@
 // select (the strict lower triangle plus the u bonus on the diagonal), never
 // a product: above the diagonal qn . kn may be huge.
 //
-// Layout: r, k, v (B, H, S, P) and y in r's type (bf16 or f32), logw
-// (B, H, S, P) f32, u (H, P) f32; r, k, v, logw and y are read through the
+// Layout: r, k, v, y and logw (B, H, S, P) f32, u (H, P) f32 (bf16 tensors
+// go to csrc/rwkv6_scan_mma.cu, on the tensor cores); r, k, v, logw and y are read through the
 // strides the launcher is given, with only the last axis dense, so the
 // model's (B, S, H, P) tensors are read in place. f32 arithmetic throughout.
 //
@@ -29,9 +29,8 @@
 // (rwkv6-3b: 40 heads x 4 = 160 blocks for 132 SMs); each block recomputes
 // the chunk's Q x Q matrix A.
 //
-// What bounds it on Hopper: at the model's shape the bytes (r, k, v, y bf16
-// and logw f32, 1.0 GB at S=32768) against 2.6e10 flops, 0.30 ms at 3.35
-// TB/s. The chunk loop is a chain of 2048 dependent steps a block, each a few
+// What bounds it on Hopper: at the model's shape the bytes (r, k, v, y and
+// logw, 1.7 GB at S=32768) against 2.6e10 flops, 0.50 ms at 3.35 TB/s. The chunk loop is a chain of 2048 dependent steps a block, each a few
 // hundred FMAs a thread between five barriers, so the first version is bound
 // by that chain's latency. The design answers it:
 //   * the next chunk's r, k, logw and v are loaded into registers while the
@@ -40,7 +39,6 @@
 //   * products are explicit fmaf, so the repository's -fmad=false flag does
 //     not split them.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -60,16 +58,11 @@ struct Strides {
   long long y_b, y_h, y_s;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-                  const float* __restrict__ logw, const float* __restrict__ u,
-                  T* __restrict__ y, int S, int P, int Q, Strides st) {
+rwkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ logw,
+                  const float* __restrict__ u, float* __restrict__ y, int S, int P, int Q,
+                  Strides st) {
   __shared__ float qs[MAX_Q][MAX_P + 1];  // r, then r exp(cw_prev)
   __shared__ float ks[MAX_Q][MAX_P + 1];  // k, then k exp(-cw)
   __shared__ float ls[MAX_Q][MAX_P + 1];  // logw, then cw, then k exp(cw_Q - cw)
@@ -81,11 +74,11 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __r
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * VB, h = blockIdx.y, b = blockIdx.z;
-  const T* rb = r + b * st.r_b + h * st.r_h;
-  const T* kb = k + b * st.k_b + h * st.k_h;
-  const T* vb = v + b * st.v_b + h * st.v_h + q0;
+  const float* rb = r + b * st.r_b + h * st.r_h;
+  const float* kb = k + b * st.k_b + h * st.k_h;
+  const float* vb = v + b * st.v_b + h * st.v_h + q0;
   const float* wb = logw + b * st.w_b + h * st.w_h;
-  T* yb = y + b * st.y_b + h * st.y_h + q0;
+  float* yb = y + b * st.y_b + h * st.y_h + q0;
   const float up = tid < P ? u[h * P + tid] : 0.f;
   const int QP = Q * P;
 
@@ -101,12 +94,12 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __r
       if (e < QP) {
         const long long i = c0 + e / P;
         const int p = e % P;
-        pr[m] = to_f32(rb[i * st.r_s + p]);
-        pk[m] = to_f32(kb[i * st.k_s + p]);
+        pr[m] = rb[i * st.r_s + p];
+        pk[m] = kb[i * st.k_s + p];
         pw[m] = wb[i * st.w_s + p];
       }
     }
-    if (tid < Q * VB) pv = to_f32(vb[(long long)(c0 + tid / VB) * st.v_s + tid % VB]);
+    if (tid < Q * VB) pv = vb[(long long)(c0 + tid / VB) * st.v_s + tid % VB];
   };
   fetch(0);
 
@@ -163,7 +156,7 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __r
       float intra = 0.f, inter = 0.f;
       for (int j = 0; j <= i; ++j) intra = __fmaf_rn(am[i][j], vs[j][q], intra);
       for (int p = 0; p < P; ++p) inter = __fmaf_rn(qs[i][p], ss[p][q], inter);
-      store(yb + (long long)(c0 + i) * st.y_s + q, intra + inter);
+      yb[(long long)(c0 + i) * st.y_s + q] = intra + inter;
     }
     __syncthreads();
 
@@ -176,34 +169,23 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __r
   }
 }
 
-template <typename T>
-int launch(const void* r, const void* k, const void* v, const float* logw, const float* u,
-           void* y, int B, int H, int S, int P, int Q, const Strides& st, cudaStream_t stream) {
-  const dim3 grid(P / VB, H, B);
-  rwkv6_scan_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), logw, u,
-      static_cast<T*>(y), S, P, Q, st);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // strides: r, k, v, logw, y (b, h, s) each, in elements; every last axis is
 // dense and u is contiguous. Returns the launch's cudaGetLastError() code (0
-// on success). is_bf16 selects bf16 r, k, v and y, otherwise f32. Does not
-// synchronise.
+// on success). f32 tensors only. Does not synchronise.
 extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v, const void* logw,
                                  const void* u, void* y, int B, int H, int S, int P, int Q,
-                                 const long long* strides, int is_bf16, void* stream) {
+                                 const long long* strides, void* stream) {
   if (B < 1 || H < 1 || S < 1 || P < VB || P > MAX_P || P % VB != 0 || Q < 1 || Q > MAX_Q ||
       S % Q != 0)
     return (int)cudaErrorInvalidValue;
   const long long* s = strides;
   const Strides st{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
                    s[8], s[9], s[10], s[11], s[12], s[13], s[14]};
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const float* wf = static_cast<const float*>(logw);
-  const float* uf = static_cast<const float*>(u);
-  return is_bf16 ? launch<__nv_bfloat16>(r, k, v, wf, uf, y, B, H, S, P, Q, st, cs)
-                 : launch<float>(r, k, v, wf, uf, y, B, H, S, P, Q, st, cs);
+  rwkv6_scan_kernel<<<dim3(P / VB, H, B), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(r), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(logw), static_cast<const float*>(u), static_cast<float*>(y), S,
+      P, Q, st);
+  return (int)cudaGetLastError();
 }

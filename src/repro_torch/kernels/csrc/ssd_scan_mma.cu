@@ -474,13 +474,7 @@ int dispatch_q(int Q, const void* x, const float* dt, const float* A, const void
 
 // The value columns a block takes: 32 where they divide P, else 16. At
 // zamba2-7b's heads (P=64) 32 columns a block (224 blocks) ran faster than 64
-// (112 blocks, under one an SM) and 16. A diagnostic build may fix the width
-// with -DSSD_MMA_BLOCK_COLS=16, 32 or 64 (scripts/torch_kernel_probe.py); the
-// port's build does not.
-#ifdef SSD_MMA_BLOCK_COLS
-static_assert(SSD_MMA_BLOCK_COLS == 16 || SSD_MMA_BLOCK_COLS == 32 || SSD_MMA_BLOCK_COLS == 64,
-              "SSD_MMA_BLOCK_COLS is 16, 32 or 64");
-#endif
+// (112 blocks, under one an SM) and 16.
 
 // strides: x (b, h, s), dt (b, h, s), B (b, s), C (b, s), y (b, h, s), in
 // elements; every last axis is dense. vec says that x, B and C rows are
@@ -498,11 +492,6 @@ extern "C" int ssd_scan_mma_launch(const void* x, const void* dt, const void* A,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
-#ifdef SSD_MMA_BLOCK_COLS
-  if (P % SSD_MMA_BLOCK_COLS != 0) return (int)cudaErrorInvalidValue;
-  return dispatch_q<SSD_MMA_BLOCK_COLS>(Q, x, dtf, Af, Bm, Cm, y, B, H, S, P, N, st, vec, s);
-#else
   if (P % 32 == 0) return dispatch_q<32>(Q, x, dtf, Af, Bm, Cm, y, B, H, S, P, N, st, vec, s);
   return dispatch_q<16>(Q, x, dtf, Af, Bm, Cm, y, B, H, S, P, N, st, vec, s);
-#endif
 }

@@ -1,9 +1,11 @@
-"""Causal GQA flash attention: the two CUDA kernels' wrapper and their plain version.
+"""GQA flash attention: the two CUDA kernels' wrapper and their plain version.
 
 :func:`flash_attention_hsd` takes heads-major q ``(B, H, S, D)`` and k/v
-``(B, KH, S, D)`` and returns ``(B, H, S, D)`` in q's dtype: causal
-attention with an optional sliding window (``pos_k > pos_q - window``), kv
-head ``h // (H // KH)``, softmax in f32.
+``(B, KH, S, D)`` and returns ``(B, H, S, D)`` in q's dtype: attention that is
+causal (``causal=True``, the default: ``pos_k <= pos_q``) or not, with an
+optional sliding window (``pos_k > pos_q - window``), kv head ``h // (H //
+KH)``, the f32 scores multiplied by ``scale`` (``D**-0.5`` when None), softmax
+in f32. The keywords are the JAX package's ``flash_attention_hsd``'s.
 
 On a CUDA tensor it launches one kernel, by dtype, and raises on any input
 the kernels do not take:
@@ -100,13 +102,14 @@ def blockwise_attention(
     k: torch.Tensor,  # (B, S, KH, Dk)
     v: torch.Tensor,  # (B, S, KH, Dv)
     *,
-    window: int = 0,  # 0 = full causal; >0 sliding window
+    window: int = 0,  # 0 = no window; >0 sliding window
     chunk: int = 1024,
     scale: float | None = None,
+    causal: bool = True,
 ) -> torch.Tensor:
-    """Blockwise causal attention with an online softmax over (chunk, chunk)
-    tiles, skipping kv tiles outside the causal/window band; model layout
-    ``(B, S, H, D)``. The plain version of the kernel."""
+    """Blockwise attention, causal or not, with an online softmax over
+    (chunk, chunk) tiles, skipping kv tiles outside the causal/window band;
+    model layout ``(B, S, H, D)``. The plain version of the kernel."""
     B, S, H, Dk = q.shape
     KH, Dv = k.shape[2], v.shape[-1]
     G = H // KH
@@ -127,10 +130,16 @@ def blockwise_attention(
         m = torch.full((B, chunk, KH, G), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((B, chunk, KH, G), dtype=torch.float32, device=q.device)
         acc = torch.zeros((B, chunk, KH, G, Dv), dtype=torch.float32, device=q.device)
-        for kj in range(max(0, qi - span + 1), qi + 1):
+        # the band: the tiles before the diagonal as far as the window
+        # reaches, and, when not causal, every tile after it (the window
+        # bounds keys from below only)
+        last = qi if causal else nq - 1
+        for kj in range(max(0, qi - span + 1), last + 1):
             s = torch.einsum("bikgd,bjkd->bikgj", qblk, kc[:, kj].float())
             pos_k = kj * chunk + ar
-            live = pos_k[None, :] <= pos_q[:, None]
+            live = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device)
+            if causal:
+                live &= pos_k[None, :] <= pos_q[:, None]
             if window > 0:
                 live &= pos_k[None, :] > pos_q[:, None] - window
             s = torch.where(live[None, :, None, None, :], s, NEG_INF)
@@ -146,11 +155,19 @@ def blockwise_attention(
 
 
 def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int = 0, chunk: int = 1024
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: float | None = None,
+    chunk: int = 1024,
 ) -> torch.Tensor:
     """:func:`blockwise_attention` in the kernel's heads-major layout."""
     out = blockwise_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=window, chunk=chunk
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        window=window, chunk=chunk, scale=scale, causal=causal,
     )
     return out.transpose(1, 2)
 
@@ -170,17 +187,17 @@ def _stream(q: torch.Tensor) -> int:
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
-def flash_attention_wgmma(q, k, v, out, *, window: int) -> None:
+def flash_attention_wgmma(q, k, v, out, *, causal: bool, window: int, scale: float) -> None:
     """Launch ``csrc/flash_attention_wgmma.cu`` on checked bf16 CUDA tensors,
     writing ``out``; counts its launches."""
     B, H, S, D = q.shape
     plan = wgmma_plan(D)
-    fn = _build.launcher("flash_attention_wgmma", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn = _build.launcher("flash_attention_wgmma", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, k.shape[1], S, D, int(window), D**-0.5,
+            B, H, k.shape[1], S, D, int(window), int(causal), scale,
             plan.d_pad, plan.block_k, plan.stages, plan.smem_bytes, plan.grid(B, H, S),
             _stream(q),
         )
@@ -189,15 +206,16 @@ def flash_attention_wgmma(q, k, v, out, *, window: int) -> None:
     flash_attention_wgmma.launches += 1
 
 
-def flash_attention_f32(q, k, v, out, *, window: int) -> None:
+def flash_attention_f32(q, k, v, out, *, causal: bool, window: int, scale: float) -> None:
     """Launch ``csrc/flash_attention.cu`` on checked f32 CUDA tensors,
     writing ``out``; counts its launches."""
     B, H, S, D = q.shape
-    fn = _build.launcher("flash_attention", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p])
+    vec = all(x.data_ptr() % 16 == 0 for x in (q, k, v))  # else loads element by element
+    fn = _build.launcher("flash_attention", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, H, k.shape[1], S, D, int(window), D**-0.5, _stream(q))
+                 B, H, k.shape[1], S, D, int(window), int(causal), scale, int(vec), _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention_f32.launches += 1
@@ -209,13 +227,16 @@ def flash_attention_hsd(
     k: torch.Tensor,  # (B, KH, S, D)
     v: torch.Tensor,  # (B, KH, S, D)
     *,
+    causal: bool = True,
     window: int = 0,
+    scale: float | None = None,
     chunk: int = 1024,
 ) -> torch.Tensor:
-    """Causal (sliding-window when ``window > 0``) GQA attention, heads-major,
-    scaled by ``D**-0.5``. A CUDA ``q`` launches the bf16 or the f32 kernel;
-    a CPU one runs the plain version with tiles of ``chunk`` (which must
-    divide S; the kernels ignore it)."""
+    """GQA attention, heads-major: causal unless ``causal=False``, within a
+    sliding window when ``window > 0``, scores scaled by ``scale``
+    (``D**-0.5`` when None). A CUDA ``q`` launches the bf16 or the f32
+    kernel; a CPU one runs the plain version with tiles of ``chunk`` (which
+    must divide S; the kernels ignore it)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be 4-D, got {tuple(q.shape)} and {tuple(k.shape)}")
     B, H, S, D = q.shape
@@ -226,8 +247,10 @@ def flash_attention_hsd(
         raise ValueError(f"Sq={S} != Skv={Skv}: the kernel takes Sq == Skv only")
     if KH < 1 or H % KH:
         raise ValueError(f"H={H} is not a multiple of KH={KH}")
+    scale = D**-0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, window=window, chunk=chunk)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale,
+                                     chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in DTYPES:
@@ -245,9 +268,9 @@ def flash_attention_hsd(
         for name, x in (("q", q), ("k", k), ("v", v)):
             if x.data_ptr() % 16:
                 raise ValueError(f"{name} is not 16-byte aligned")
-        flash_attention_wgmma(q, k, v, out, window=window)
+        flash_attention_wgmma(q, k, v, out, causal=bool(causal), window=window, scale=scale)
     else:
-        flash_attention_f32(q, k, v, out, window=window)
+        flash_attention_f32(q, k, v, out, causal=bool(causal), window=window, scale=scale)
     flash_attention_hsd.launches += 1
     return out
 

@@ -22,15 +22,18 @@ def flash_attention(
     k: torch.Tensor,  # (B, S, KH, D)
     v: torch.Tensor,
     *,
+    causal: bool = True,
     window: int = 0,
     chunk: int = 1024,
 ) -> torch.Tensor:
-    """Causal (sliding-window when ``window > 0``) GQA attention in the model
-    layout; ``chunk`` tiles the plain version only."""
+    """GQA attention in the model layout, causal unless ``causal=False``
+    (sliding-window when ``window > 0``); ``chunk`` tiles the plain version
+    only."""
     out = flash_attention_hsd(
         q.transpose(1, 2).contiguous(),
         k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(),
+        causal=causal,
         window=window,
         chunk=chunk,
     )

@@ -18,20 +18,25 @@ def flash_attention_ref(
     k: torch.Tensor,  # (B, KH, Skv, D)
     v: torch.Tensor,
     *,
+    causal: bool = True,
     window: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
-    """Full-matrix causal softmax attention in f32, scaled by ``D**-0.5``;
-    the causal mask is right-aligned when Sq < Skv."""
+    """Full-matrix softmax attention in f32, causal unless ``causal=False``,
+    scores scaled by ``scale`` (``D**-0.5`` when None); the causal mask is
+    right-aligned when Sq < Skv."""
     B, H, Sq, D = q.shape
     KH, Skv = k.shape[1], k.shape[2]
     G = H // KH
-    scale = D**-0.5
+    scale = D**-0.5 if scale is None else scale
     kk = k.repeat_interleave(G, dim=1).float()
     vv = v.repeat_interleave(G, dim=1).float()
     s = torch.einsum("bhid,bhjd->bhij", q.float(), kk) * scale
     i = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
     j = torch.arange(Skv, device=q.device)[None, :]
-    mask = j <= i
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= j <= i
     if window > 0:
         mask &= j > i - window
     s = torch.where(mask[None, None], s, -1e30)

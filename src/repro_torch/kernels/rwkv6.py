@@ -1,4 +1,4 @@
-"""RWKV-6 (Finch) wkv scan: the CUDA kernel's wrapper and its plain version.
+"""RWKV-6 (Finch) wkv scan: the CUDA kernels' wrapper and their plain version.
 
 :func:`rwkv6_chunked` is the plain version, the torch twin of the JAX model's
 ``models/ssm.py::rwkv6_chunked``: ``y_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)``,
@@ -12,12 +12,24 @@ it. It returns ``(y, final_state)``.
 
 :func:`rwkv6_scan_hsd` takes heads-major ``r, k, v, logw (B, H, S, P)`` and
 ``u (H, P)`` and returns ``y (B, H, S, P)`` in r's dtype. On a CUDA tensor it
-launches ``csrc/rwkv6_scan.cu`` once (counted in ``rwkv6_scan_hsd.launches``)
-and raises on any input the kernel does not take; the kernel reads strided
-views, so ``ops.rwkv6_scan`` hands it transposed model-layout tensors without
-a copy. On a CPU tensor it runs the plain version. The kernel replaces the
-TPU kernel ``_rwkv6_kernel`` / ``rwkv6_scan_hsd`` of the JAX package and,
-like it, returns ``y`` only.
+launches one kernel, by dtype, and raises on any input the kernels do not
+take:
+
+* bf16 -> ``csrc/rwkv6_scan_mma.cu`` (:func:`rwkv6_scan_mma`): the chunk's
+  products on the tensor cores (``mma.sync``, operands built in f32 as bf16
+  hi + lo pairs, the state f32 in registers), a warp per (b, h, segment of
+  the sequence, value columns), the segments' states passed along between
+  grids (:func:`segment_chunks` plans the segments);
+* f32 -> ``csrc/rwkv6_scan.cu`` (:func:`rwkv6_scan_f32`): exact f32 on the
+  CUDA cores.
+
+Each launcher counts its own launches, one a call however many grids it
+runs (``rwkv6_scan_mma.launches``, ``rwkv6_scan_f32.launches``), and
+``rwkv6_scan_hsd.launches`` counts both. The kernels read strided views, so
+``ops.rwkv6_scan`` hands them transposed model-layout tensors without a copy.
+On a CPU tensor the wrapper runs the plain version. The kernels replace the
+TPU kernel ``_rwkv6_kernel`` / ``rwkv6_scan_hsd`` of the JAX package and, like
+it, return ``y`` only.
 """
 from __future__ import annotations
 
@@ -26,14 +38,21 @@ import ctypes
 import torch
 
 from . import _build
-from .ssd import check_operand, empty_in_layout
+from .ssd import check_operand, empty_in_layout, rows_16b
 
-__all__ = ["MAX_CHUNK", "rwkv6_chunked", "rwkv6_scan_hsd", "rwkv6_scan_plain"]
+__all__ = [
+    "MAX_CHUNK", "rwkv6_chunked", "rwkv6_scan_f32", "rwkv6_scan_hsd", "rwkv6_scan_mma",
+    "rwkv6_scan_plain", "segment_chunks", "value_cols",
+]
 
-LIBRARY = "rwkv6_scan"
 MAX_CHUNK = 16  # exp(-cw) stays finite in f32 only up to Q=16
-MAX_HEAD = 64  # P: the kernel's shared-memory tiles are sized for P <= 64
+MAX_HEAD = 64  # P: the kernels' tiles are sized for P <= 64
 DTYPES = (torch.bfloat16, torch.float32)
+# warps the bf16 kernel aims to run at once: the sequence is cut into as many
+# segments as it takes (B * H * P / value_cols(P) warps a segment), each at
+# least MIN_SEGMENT_CHUNKS chunks long
+TARGET_WARPS = 2048
+MIN_SEGMENT_CHUNKS = 16
 
 
 @torch.no_grad()
@@ -93,14 +112,69 @@ def rwkv6_scan_plain(r, k, v, logw, u, *, chunk: int = MAX_CHUNK) -> torch.Tenso
     return t(y)
 
 
-def _launcher():
-    fn = _build.load(LIBRARY).rwkv6_scan_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return fn
+def value_cols(P: int) -> int:
+    """Value columns a warp of the bf16 kernel takes: 32 where they divide P,
+    else 16 (32 ran faster than 16 and 64 at rwkv6-3b's P = 64; PERF.md)."""
+    return 32 if P % 32 == 0 else 16
+
+
+def segment_chunks(B: int, H: int, S: int, P: int, Q: int) -> int:
+    """Chunks of one segment of the bf16 kernel's sequence split: enough
+    segments for about :data:`TARGET_WARPS` warps (a warp per (b, h, segment,
+    :func:`value_cols` value columns)), none shorter than
+    :data:`MIN_SEGMENT_CHUNKS` chunks. A sequence of one segment runs a
+    single grid."""
+    nchunks = S // Q
+    per_segment = B * H * (P // value_cols(P))
+    nseg = max(1, min(-(-TARGET_WARPS // per_segment), nchunks // MIN_SEGMENT_CHUNKS))
+    return -(-nchunks // nseg)
+
+
+def _strides(r, k, v, logw, y):
+    return (ctypes.c_longlong * 15)(*(s for t in (r, k, v, logw, y) for s in t.stride()[:3]))
+
+
+def rwkv6_scan_mma(r, k, v, logw, u, y, Q: int) -> None:
+    """Launch ``csrc/rwkv6_scan_mma.cu`` on checked bf16 CUDA tensors,
+    writing ``y``; counts one launch a call. A sequence of more than one
+    segment (:func:`segment_chunks`) runs three grids: the segments' end
+    states into a workspace, the states passed along, then y. Rows that are
+    16-byte aligned load by 16-byte ``cp.async``; any other strided view
+    loads element by element."""
+    B, H, S, P = r.shape
+    seg = segment_chunks(B, H, S, P, Q)
+    nseg = -(-(S // Q) // seg)
+    state = decay = None
+    if nseg > 1:
+        state = torch.empty((B, H, nseg, P, P), dtype=torch.float32, device=r.device)
+        decay = torch.empty((B, H, nseg, P), dtype=torch.float32, device=r.device)
+    vec = all(rows_16b(t, 3) for t in (r, k, v, logw))
+    fn = _build.launcher("rwkv6_scan_mma", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(r.device):
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
+                 y.data_ptr(), None if state is None else state.data_ptr(),
+                 None if decay is None else decay.data_ptr(), B, H, S, P, Q, value_cols(P), seg,
+                 _strides(r, k, v, logw, y), int(vec),
+                 torch.cuda.current_stream(r.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan_mma launch failed: CUDA error {err}")
+    rwkv6_scan_mma.launches += 1
+
+
+def rwkv6_scan_f32(r, k, v, logw, u, y, Q: int) -> None:
+    """Launch ``csrc/rwkv6_scan.cu`` on checked f32 CUDA tensors, writing
+    ``y``; counts its launches."""
+    B, H, S, P = r.shape
+    fn = _build.launcher("rwkv6_scan", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    with torch.cuda.device(r.device):
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
+                 y.data_ptr(), B, H, S, P, Q, _strides(r, k, v, logw, y),
+                 torch.cuda.current_stream(r.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan launch failed: CUDA error {err}")
+    rwkv6_scan_f32.launches += 1
 
 
 @torch.no_grad()
@@ -115,7 +189,8 @@ def rwkv6_scan_hsd(
 ) -> torch.Tensor:
     """The wkv scan, heads-major; ``y (B, H, S, P)`` in r's dtype, with chunk
     length ``min(chunk, S)``. Raises for ``chunk > 16`` on every device. A
-    CUDA ``r`` launches the kernel; a CPU one runs the plain version."""
+    CUDA ``r`` launches the bf16 or the f32 kernel; a CPU one runs the plain
+    version."""
     if chunk > MAX_CHUNK:
         raise ValueError(
             f"chunk {chunk} > {MAX_CHUNK}: exp(-cumsum(logw)) overflows f32 beyond Q={MAX_CHUNK}"
@@ -129,7 +204,7 @@ def rwkv6_scan_hsd(
     if r.device.type != "cuda":
         raise ValueError(f"unsupported device {r.device}")
     if r.dtype not in DTYPES:
-        raise TypeError(f"r has dtype {r.dtype}; the kernel takes {DTYPES}")
+        raise TypeError(f"r has dtype {r.dtype}; the kernels take {DTYPES}")
     for name, t in (("r", r), ("k", k), ("v", v)):
         check_operand(name, t, r.device, r.dtype, (B, H, S, P))
     check_operand("logw", logw, r.device, torch.float32, (B, H, S, P))
@@ -139,21 +214,16 @@ def rwkv6_scan_hsd(
     if Q < 1 or S % Q:
         raise ValueError(f"chunk {Q} does not divide seq {S}")
     if P % 16 or P > MAX_HEAD:
-        raise ValueError(f"P={P}: the kernel takes P a multiple of 16, at most {MAX_HEAD}")
+        raise ValueError(f"P={P}: the kernels take P a multiple of 16, at most {MAX_HEAD}")
     y = empty_in_layout(r)
-    strides = (ctypes.c_longlong * 15)(
-        *(s for t in (r, k, v, logw, y) for s in t.stride()[:3])
-    )
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = _launcher()(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
-            y.data_ptr(), B, H, S, P, Q, strides, int(r.dtype == torch.bfloat16), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"rwkv6_scan launch failed: CUDA error {err}")
+    if r.dtype == torch.bfloat16:
+        rwkv6_scan_mma(r, k, v, logw, u, y, Q)
+    else:
+        rwkv6_scan_f32(r, k, v, logw, u, y, Q)
     rwkv6_scan_hsd.launches += 1
     return y
 
 
-rwkv6_scan_hsd.launches = 0
+rwkv6_scan_hsd.launches = 0  # both kernels
+rwkv6_scan_mma.launches = 0
+rwkv6_scan_f32.launches = 0

@@ -135,10 +135,11 @@ def _strides(x, dt, Bm, Cm, y):
     )
 
 
-def _rows_16b(t: torch.Tensor, n_strided: int) -> bool:
+def rows_16b(t: torch.Tensor, n_strided: int) -> bool:
     """Whether every row of ``t`` starts 16-byte aligned: an aligned base
-    and the first ``n_strided`` strides multiples of 8 bf16 elements."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:n_strided])
+    and the first ``n_strided`` strides multiples of 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(
+        s * t.element_size() % 16 == 0 for s in t.stride()[:n_strided])
 
 
 def ssd_scan_mma(x, dt, A, Bm, Cm, y, Q: int) -> None:
@@ -148,7 +149,7 @@ def ssd_scan_mma(x, dt, A, Bm, Cm, y, Q: int) -> None:
     view loads element by element."""
     B, H, S, P = x.shape
     N = Bm.shape[-1]
-    vec = N % 8 == 0 and _rows_16b(x, 3) and _rows_16b(Bm, 2) and _rows_16b(Cm, 2)
+    vec = N % 8 == 0 and rows_16b(x, 3) and rows_16b(Bm, 2) and rows_16b(Cm, 2)
     fn = _build.launcher("ssd_scan_mma", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(x.device):

@@ -54,11 +54,13 @@ class ServingEngine:
         *,
         slots: int = 8,
         max_len: int = 512,
+        greedy: bool = True,
         device="cuda",
     ) -> None:
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
+        self.greedy = greedy  # stored as the reference stores it; decoding is argmax
         self.device = torch.device(device)
         self.slots = [_Slot() for _ in range(slots)]
         self.queue: deque[Request] = deque()

@@ -2,10 +2,11 @@
 package's, on the CPU: ``ops.flash_attention`` runs its plain version here
 (``blockwise_attention``), held against the Pallas kernel in interpret mode and
 against the dense oracle over ``tests/test_kernels.py``'s cases, with that
-file's tolerances. The bf16 kernel's arithmetic (P rounded to bf16 for P.V) is
-emulated here and held to the same references and to the JAX model's logits;
-its host-side plan is checked for every head dim. Inputs are made with numpy
-from a seed."""
+file's tolerances, and with the keywords the model never passes
+(``causal=False``, a caller's ``scale``). The bf16 kernel's arithmetic (P
+rounded to bf16 for P.V) is emulated here and held to the same references and
+to the JAX model's logits; its host-side plan is checked for every head dim.
+Inputs are made with numpy from a seed."""
 import math
 
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ from test_kernels import ATTN_CASES
 from test_torch_models import _pair, _tokens, bf16_tol
 
 import repro.models as jm
+from repro.kernels import flash_attention as jflash
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
@@ -71,6 +73,74 @@ def test_port_flash_matches_pallas_and_oracle(case, name):
     np.testing.assert_allclose(_np(mine), _np(oracle), **tol(name))
 
 
+# (B, S, H, KH, D, window, bq, bk), causal, scale: not causal with window 0
+# and > 0, and scales other than D**-0.5, causal or not
+KEYWORD_CASES = [
+    ((1, 128, 4, 4, 64, 0, 64, 64), False, None),
+    ((2, 256, 4, 2, 64, 96, 64, 64), False, None),
+    ((1, 256, 4, 1, 128, 0, 64, 128), False, 0.05),
+    ((2, 256, 8, 2, 64, 0, 128, 64), True, 0.3),
+    ((1, 512, 2, 2, 32, 128, 128, 128), False, 0.25),
+    ((1, 128, 2, 2, 96, 0, 128, 128), True, 1.5),
+]
+
+
+def _keyword_refs(q, k, v, case, causal, scale):
+    """The JAX package's Pallas kernel (interpret mode) and dense oracle, in
+    the model layout."""
+    B, S, H, KH, D, window, bq, bk = case
+    t = lambda x: x.transpose(0, 2, 1, 3)  # noqa: E731
+    pallas = t(jflash.flash_attention_hsd(t(q), t(k), t(v), causal=causal, window=window,
+                                          scale=scale, block_q=bq, block_k=bk, interpret=True))
+    oracle = t(jref.flash_attention_ref(t(q), t(k), t(v), causal=causal, window=window,
+                                        scale=scale))
+    return pallas, oracle
+
+
+@pytest.mark.parametrize("case, causal, scale", KEYWORD_CASES)
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_port_flash_keywords_match_pallas_and_oracle(case, causal, scale, name):
+    """``flash_attention_hsd``, ``ops.flash_attention`` and the port's
+    oracle take ``causal=`` and ``scale=`` as the JAX package's do, and
+    agree with its Pallas kernel and its oracle."""
+    B, S, H, KH, D, window, bq, bk = case
+    (q, k, v), (tq, tk, tv) = _inputs(
+        sum(case) + 3, [(B, S, H, D), (B, S, KH, D), (B, S, KH, D)], name
+    )
+    pallas, oracle = _keyword_refs(q, k, v, case, causal, scale)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    got = t(fa.flash_attention_hsd(t(tq), t(tk), t(tv), causal=causal, window=window,
+                                   scale=scale, chunk=bq))
+    assert got.dtype == DTYPES[name][1] and tuple(got.shape) == (B, S, H, D)
+    np.testing.assert_allclose(_np(got), _np(pallas), **tol(name))
+    np.testing.assert_allclose(_np(got), _np(oracle), **tol(name))
+    if scale is None:  # the model-layout wrapper takes causal= as the JAX one does
+        mine = ops.flash_attention(tq, tk, tv, causal=causal, window=window, chunk=bq)
+        np.testing.assert_allclose(_np(mine), _np(pallas), **tol(name))
+        jmine = jops.flash_attention(q, k, v, causal=causal, window=window, block_q=bq,
+                                     block_k=bk, interpret=True)
+        np.testing.assert_allclose(_np(mine), _np(jmine), **tol(name))
+    dense = t(ref.flash_attention_ref(t(tq), t(tk), t(tv), causal=causal, window=window,
+                                      scale=scale))
+    np.testing.assert_allclose(_np(dense), _np(oracle), **tol(name))
+
+
+def test_noncausal_blockwise_visits_every_tile():
+    """Without the causal mask a query's output depends on later keys: with
+    the tiles after the diagonal skipped, changing the last key would not
+    change the first query's row."""
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 64, 2, 16)).astype(np.float32))
+               for _ in range(3))
+    base = fa.blockwise_attention(q, k, v, chunk=16, causal=False)
+    v2 = v.clone()
+    v2[:, -1] += 1.0
+    moved = fa.blockwise_attention(q, k, v2, chunk=16, causal=False)
+    assert not torch.allclose(base[:, 0], moved[:, 0])
+    assert torch.equal(fa.blockwise_attention(q, k, v, chunk=16)[:, 0],
+                       fa.blockwise_attention(q, k, v2, chunk=16)[:, 0])
+
+
 @pytest.mark.parametrize("window", [0, 5, 24])
 def test_blockwise_matches_jax_blockwise(window):
     """A window smaller than the chunk, equal-ish, and larger; f32."""
@@ -114,16 +184,17 @@ def test_attention_limit_scales_with_each_row():
     assert ref.row_limit_ratio(late, want, 2e-2) > 1.0
 
 
-def wgmma_emulation(q, k, v, *, window=0):
+def wgmma_emulation(q, k, v, *, causal=True, window=0, scale=None):
     """The bf16 kernel's arithmetic (``csrc/flash_attention_wgmma.cu``) in
-    the heads-major layout: bf16 operands with f32 sums, the scale applied to
-    the f32 scores (in base 2, as the kernel's exp2), an online softmax over
-    kv tiles of the plan's ``block_k`` keys with the -1e30 sentinel, l summed
-    from the f32 P, and P rounded to bf16 before P.V."""
+    the heads-major layout: bf16 operands with f32 sums, the scale (``D**-0.5``
+    when None) applied to the f32 scores (in base 2, as the kernel's exp2), an
+    online softmax over kv tiles of the plan's ``block_k`` keys with the
+    -1e30 sentinel, the causal mask only when ``causal``, l summed from the
+    f32 P, and P rounded to bf16 before P.V."""
     B, H, S, D = q.shape
     G = H // k.shape[1]
     bk = fa.wgmma_plan(D).block_k
-    c = D**-0.5 * math.log2(math.e)
+    c = (D**-0.5 if scale is None else scale) * math.log2(math.e)
     qf = q.float()
     kf, vf = (x.repeat_interleave(G, dim=1).float() for x in (k, v))
     pos = torch.arange(S)
@@ -133,7 +204,9 @@ def wgmma_emulation(q, k, v, *, window=0):
     for k0 in range(0, S, bk):
         u = qf @ kf[:, :, k0 : k0 + bk].transpose(-1, -2) * c
         pk = pos[k0 : k0 + bk]
-        live = pk[None, :] <= pos[:, None]
+        live = torch.ones((S, pk.numel()), dtype=torch.bool)
+        if causal:
+            live &= pk[None, :] <= pos[:, None]
         if window > 0:
             live &= pk[None, :] > pos[:, None] - window
         u = torch.where(live, u, fa.NEG_INF)
@@ -146,10 +219,10 @@ def wgmma_emulation(q, k, v, *, window=0):
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
-def _emulated_attention(q, k, v, *, window=0, chunk=1024):
+def _emulated_attention(q, k, v, *, causal=True, window=0, chunk=1024):
     """:func:`wgmma_emulation` in the model layout, as ``ops.flash_attention``."""
     t = lambda x: x.transpose(1, 2)  # noqa: E731
-    return t(wgmma_emulation(t(q), t(k), t(v), window=window))
+    return t(wgmma_emulation(t(q), t(k), t(v), causal=causal, window=window))
 
 
 @pytest.mark.parametrize("case", ATTN_CASES)
@@ -166,6 +239,21 @@ def test_wgmma_arithmetic_matches_pallas_and_oracle(case):
     )
     t = lambda x: x.transpose(0, 2, 1, 3)  # noqa: E731
     oracle = t(jref.flash_attention_ref(t(q), t(k), t(v), causal=True, window=window))
+    np.testing.assert_allclose(_np(got), _np(pallas), **tol("bfloat16"))
+    np.testing.assert_allclose(_np(got), _np(oracle), **tol("bfloat16"))
+
+
+@pytest.mark.parametrize("case, causal, scale", KEYWORD_CASES)
+def test_wgmma_arithmetic_keywords_match_pallas_and_oracle(case, causal, scale):
+    """The emulated bf16 kernel with ``causal=False`` and a caller's scale
+    fits the bf16 tolerance against the Pallas kernel and the oracle."""
+    B, S, H, KH, D, window, bq, bk = case
+    (q, k, v), (tq, tk, tv) = _inputs(
+        sum(case) + 3, [(B, S, H, D), (B, S, KH, D), (B, S, KH, D)], "bfloat16"
+    )
+    pallas, oracle = _keyword_refs(q, k, v, case, causal, scale)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    got = t(wgmma_emulation(t(tq), t(tk), t(tv), causal=causal, window=window, scale=scale))
     np.testing.assert_allclose(_np(got), _np(pallas), **tol("bfloat16"))
     np.testing.assert_allclose(_np(got), _np(oracle), **tol("bfloat16"))
 

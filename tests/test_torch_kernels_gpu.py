@@ -278,6 +278,68 @@ def test_flash_kernel_matches_plain(case, dtype):
     assert ref.row_limit_ratio(got, want, FLASH_TOL[dtype]) <= 1.0
 
 
+# the keywords the model never passes: (B, S, H, KH, D, window), causal, scale
+FLASH_KEYWORD_CASES = [
+    ((1, 128, 4, 4, 64, 0), False, None), ((2, 256, 4, 2, 64, 96), False, None),
+    ((1, 333, 4, 1, 256, 100), False, 0.05), ((2, 200, 8, 2, 112, 0), True, 0.3),
+    ((1, 256, 2, 2, 32, 0), False, 0.25), ((2, 77, 4, 4, 96, 33), False, 0.2),
+    ((1, 1000, 8, 2, 128, 300), False, None), ((2, 1000, 4, 4, 16, 0), False, 1.5),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_KEYWORD_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_keywords_match_plain(case, dtype):
+    """``causal=False`` (window 0 and > 0) and a caller's scale, on both
+    kernels, against the plain version and the dense oracle."""
+    _need_card()
+    (B, S, H, KH, D, window), causal, scale = case
+    rng = np.random.default_rng(sum(case[0]) + 7)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+        for s in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D))
+    )
+    before = FLASH_KERNEL[dtype].launches
+    kw = dict(causal=causal, window=window, scale=scale)
+    got = fa.flash_attention_hsd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FLASH_KERNEL[dtype].launches == before + 1
+    chunk = 64 if S % 64 == 0 else S
+    want = fa.flash_attention_plain(q, k, v, chunk=chunk, **kw)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert ref.row_limit_ratio(got, want, FLASH_TOL[dtype]) <= 1.0
+    dense = ref.flash_attention_ref(q, k, v, **kw)
+    assert ref.row_limit_ratio(got, dense, FLASH_TOL[dtype]) <= 1.0
+
+
+@pytest.mark.parametrize("case", [(1, 300, 4, 4, 112, 0), (2, 77, 4, 1, 256, 50),
+                                  (1, 1000, 8, 2, 64, 0)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_kernel_unaligned_rows(case, causal):
+    """f32 q, k and v that start one element past a 16-byte boundary load
+    element by element: equal to the aligned result bit for bit, and
+    against the plain version. bf16 tensors, read by TMA, still raise."""
+    _need_card()
+    B, S, H, KH, D, window = case
+    rng = np.random.default_rng(sum(case) + 3)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda")
+        for s in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D))
+    )
+    kw = dict(causal=causal, window=window)
+    for un in ((_unaligned(q), k, v), (q, _unaligned(k), v), (q, k, _unaligned(v))):
+        before = fa.flash_attention_f32.launches
+        got = fa.flash_attention_hsd(*un, **kw)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_f32.launches == before + 1
+        assert torch.equal(got, fa.flash_attention_hsd(q, k, v, **kw))
+    chunk = 64 if S % 64 == 0 else S
+    want = fa.flash_attention_plain(q, k, v, chunk=chunk, **kw)
+    assert ref.row_limit_ratio(got, want, FLASH_TOL[torch.float32]) <= 1.0
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_hsd(_unaligned(q.bfloat16()), k.bfloat16(), v.bfloat16(), **kw)
+
+
 def test_flash_wrapper_rejects_bad_inputs():
     _need_card()
     q = torch.zeros(1, 4, 64, 64, device="cuda", dtype=torch.bfloat16)
@@ -440,6 +502,105 @@ def test_ssd_routes_by_dtype():
         torch.cuda.synchronize()
         assert (ssd.ssd_scan_hsd.launches, kernel.launches, other.launches) == (
             before[0] + 1, before[1] + 1, before[2])
+
+
+@pytest.mark.parametrize("segments", [False, True])
+@pytest.mark.parametrize("case", RWKV_CASES)
+def test_rwkv6_mma_kernel_matches_plain(monkeypatch, case, segments):
+    """The bf16 tensor-core kernel, one launch a call, against the chunked
+    plain version and (short cases) the sequential oracle; with
+    ``segments`` the sequence is cut into segments of two chunks, so the
+    three grids (end states, passing, y) run on every case."""
+    _need_card()
+    chunk = case[-1]
+    if segments:
+        monkeypatch.setattr(rw, "segment_chunks", lambda *a: 2)
+    args = _rwkv_args(case, torch.bfloat16)
+    before = rw.rwkv6_scan_mma.launches, rw.rwkv6_scan_f32.launches
+    got = ops.rwkv6_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (rw.rwkv6_scan_mma.launches, rw.rwkv6_scan_f32.launches) == (before[0] + 1, before[1])
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    want, _ = rw.rwkv6_chunked(*args, chunk=chunk)
+    assert ref.row_limit_ratio(got, want, *SCAN_TOL[torch.bfloat16]) <= 1.0
+    if case[1] <= 256:
+        seq, _ = ref.rwkv6_sequential(*args)
+        assert ref.row_limit_ratio(got, seq, *SCAN_TOL[torch.bfloat16]) <= 1.0
+
+
+@pytest.mark.parametrize("P", [16, 48, 64])
+def test_rwkv6_mma_kernel_cliff_decay(P):
+    """The cliff profile (half the channels at the clamp |logw| = e, half
+    nearly without decay) at Q=16, where kn reaches e^43.5: the bf16 kernel
+    against the plain version, and chunks of 5 (zero-padded rows) too."""
+    _need_card()
+    rng = np.random.default_rng(P)
+    B, S, H = 2, 160, 3
+    r, k, v = (_cuda(rng, (B, S, H, P), torch.bfloat16) for _ in range(3))
+    u = _cuda(rng, (H, P))
+    cliff = torch.where(torch.arange(P, device="cuda") < P // 2, -float(np.e), -1e-3)
+    logw = cliff.expand(B, S, H, P).contiguous()
+    for chunk in (16, 5):
+        got = ops.rwkv6_scan(r, k, v, logw, u, chunk=chunk)
+        want, _ = rw.rwkv6_chunked(r, k, v, logw, u, chunk=chunk)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert ref.row_limit_ratio(got, want, *SCAN_TOL[torch.bfloat16]) <= 1.0
+
+
+def test_rwkv6_mma_kernel_unaligned_rows():
+    """Rows that are not 16-byte aligned load element by element: against
+    the plain version, and equal to the aligned result bit for bit."""
+    _need_card()
+    args = _rwkv_args((1, 256, 4, 64, 16), torch.bfloat16, seed=3)
+    r_un = _unaligned(args[0])
+    assert r_un.data_ptr() % 16
+    got = ops.rwkv6_scan(r_un, *args[1:], chunk=16)
+    aligned = ops.rwkv6_scan(*args, chunk=16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aligned)
+
+
+def test_rwkv6_routes_by_dtype():
+    """bf16 launches the tensor-core kernel, f32 the CUDA-core one, once a
+    call each; the routing wrapper counts both."""
+    _need_card()
+    case = (1, 128, 2, 32, 16)
+    for dtype, kernel in ((torch.bfloat16, rw.rwkv6_scan_mma), (torch.float32, rw.rwkv6_scan_f32)):
+        other = rw.rwkv6_scan_f32 if kernel is rw.rwkv6_scan_mma else rw.rwkv6_scan_mma
+        before = rw.rwkv6_scan_hsd.launches, kernel.launches, other.launches
+        ops.rwkv6_scan(*_rwkv_args(case, dtype), chunk=16)
+        torch.cuda.synchronize()
+        assert (rw.rwkv6_scan_hsd.launches, kernel.launches, other.launches) == (
+            before[0] + 1, before[1] + 1, before[2])
+
+
+def test_rwkv6_mma_wrapper_rejects_bad_inputs():
+    """What the bf16 kernel does not take raises; nothing falls back to the
+    plain version or to the f32 kernel."""
+    _need_card()
+    r, k, v, logw, u = _rwkv_args((1, 64, 2, 64, 16), torch.bfloat16)
+    t = lambda a: a.transpose(1, 2)  # noqa: E731
+    before = rw.rwkv6_scan_hsd.launches, rw.rwkv6_scan_mma.launches, rw.rwkv6_scan_f32.launches
+    for bad, err in [
+        ((t(r), t(k).float(), t(v), t(logw), u), TypeError),  # k not bf16
+        ((t(r), t(k), t(v), t(logw), u.bfloat16()), TypeError),  # u must be f32
+        ((t(r), t(k), t(v).cpu(), t(logw), u), ValueError),  # device
+        ((t(r)[..., :8], t(k)[..., :8], t(v)[..., :8], t(logw)[..., :8], u[:, :8]), ValueError),
+        ((t(r)[..., :40], t(k)[..., :40], t(v)[..., :40], t(logw)[..., :40], u[:, :40]),
+         ValueError),  # P not a multiple of 16
+        ((t(r).transpose(2, 3), t(k), t(v), t(logw), u), ValueError),  # shape
+        ((t(r).half(), t(k).half(), t(v).half(), t(logw), u), TypeError),
+    ]:
+        with pytest.raises(err):
+            rw.rwkv6_scan_hsd(*bad)
+    with pytest.raises(ValueError, match="chunk"):
+        rw.rwkv6_scan_hsd(t(r), t(k), t(v), t(logw), u, chunk=32)
+    with pytest.raises(ValueError, match="chunk"):  # 12 does not divide S=64
+        rw.rwkv6_scan_hsd(t(r), t(k), t(v), t(logw), u, chunk=12)
+    assert (rw.rwkv6_scan_hsd.launches, rw.rwkv6_scan_mma.launches,
+            rw.rwkv6_scan_f32.launches) == before
 
 
 def test_rwkv6_kernel_cliff_decay():

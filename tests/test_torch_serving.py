@@ -1,7 +1,8 @@
 """The port's continuous-batching engine (``repro_torch.serving``) against the
 JAX package's, on the CPU, from the same parameters (the JAX init carried over
 by ``params_from_jax``) at f32: the same requests give the same tokens, token
-for token, with more requests than slots so that slots are recycled; and the
+for token, with more requests than slots so that slots are recycled; the
+constructor takes the reference's keywords (``greedy=``); and the
 ``repro_torch.launch.serve`` command runs end to end."""
 import dataclasses
 
@@ -35,12 +36,27 @@ def _requests(module, vocab, seed):
 def test_engine_tokens_equal_jax(arch):
     """For the SSM archs a recycled slot must also have its recurrent state
     (conv window, SSD and wkv states, token shift) zeroed on admission."""
+    _engines_serve_equal_tokens(arch)
+
+
+def test_engine_takes_greedy_as_the_reference_does():
+    """``ServingEngine(..., greedy=True)`` constructs in both packages and
+    stores the flag; decoding stays argmax (the reference never reads it), so
+    both serve the same tokens."""
+    teng = _engines_serve_equal_tokens("internlm2-1.8b-smoke", greedy=True)
+    assert teng.greedy is True
+
+
+def _engines_serve_equal_tokens(arch, **engine_kwargs):
+    """Serve the same requests on both packages' engines, built with
+    ``engine_kwargs``; returns the port's engine."""
     jc = dataclasses.replace(jconfigs.get_config(arch), dtype="float32")
     tc = dataclasses.replace(tconfigs.get_config(arch), dtype="float32")
     jp = jm.init_params(jc, jax.random.PRNGKey(1))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tc, "cpu")
-    jeng = jserving.ServingEngine(jc, jp, slots=SLOTS, max_len=MAX_LEN)
-    teng = tserving.ServingEngine(tc, tp, slots=SLOTS, max_len=MAX_LEN, device="cpu")
+    jeng = jserving.ServingEngine(jc, jp, slots=SLOTS, max_len=MAX_LEN, **engine_kwargs)
+    teng = tserving.ServingEngine(tc, tp, slots=SLOTS, max_len=MAX_LEN, device="cpu",
+                                  **engine_kwargs)
     for r in _requests(jserving, jc.vocab, 5):
         jeng.submit(r)
     for r in _requests(tserving, tc.vocab, 5):
@@ -53,6 +69,7 @@ def test_engine_tokens_equal_jax(arch):
     assert N_REQ > SLOTS  # slots were recycled
     assert teng.active == 0 and not teng.queue
     np.testing.assert_array_equal(teng.cache["length"].numpy(), np.asarray(jeng.cache["length"]))
+    return teng
 
 
 def test_engine_rejects_oversized_request():

@@ -3,9 +3,12 @@
 made with numpy from a seed and handed to both packages bit for bit. The scan
 wrappers run their chunked plain versions here; they are held to the JAX
 package's Pallas kernels in interpret mode and to the sequential oracles at
-``tests/test_kernels.py``'s cases and tolerances. The mixers run from the
-same parameters (the JAX init carried over)."""
+``tests/test_kernels.py``'s cases and tolerances. The bf16 RWKV-6 kernel's
+arithmetic (its bf16 hi + lo rounding points and its sequence split) is
+emulated here and held to the same references and to the JAX model's logits.
+The mixers run from the same parameters (the JAX init carried over)."""
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -14,12 +17,16 @@ import pytest
 import torch
 from _hypothesis_compat import given, settings, st
 from test_kernels import RWKV_CASES, SSD_CASES, tol
+from test_torch_models import _pair, _tokens, bf16_tol
 
 import repro.configs as jconfigs
+import repro.models as jm
 from repro.kernels import ops as jops
 from repro.models import ssm as jssm
 import repro_torch.configs as tconfigs
+import repro_torch.models as tm
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import rwkv6 as trw
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_scan_hsd
 from repro_torch.kernels.ssd import ssd_chunked, ssd_scan_hsd
@@ -151,6 +158,136 @@ def test_rwkv6_property_cliff_decay(chunks, h, p, seed):
     out = tops.rwkv6_scan(r, k, v, logw, u, chunk=Q)
     expect, _ = tref.rwkv6_sequential(r, k, v, logw, u)
     np.testing.assert_allclose(out.numpy(), expect.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def _split(x):
+    """x (f32) as bf16 hi and lo parts, each held in f32."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _mm_built(a, b):
+    """A product of two operands built in f32, as the kernel feeds them to
+    the tensor cores: hi.hi + hi.lo + lo.hi, f32 sums."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _mm_half(a, b):
+    """A product of an operand built in f32 with a bf16 one: hi.b + lo.b."""
+    ah, al = _split(a)
+    return ah @ b + al @ b
+
+
+def rwkv6_mma_emulation(r, k, v, logw, u, *, chunk=16, segment_chunks=None):
+    """The bf16 kernel's arithmetic (``csrc/rwkv6_scan_mma.cu``) in the model
+    layout ``(B, S, H, P)``: chunks zero-padded to 16 rows; exclusive decay
+    cumsums; qn, kn, A, kdec and the state fed to their products as bf16 hi +
+    lo pairs with f32 sums (v as it is, bf16); the u bonus and the decays in
+    f32; the sequence cut into segments of ``segment_chunks`` chunks (the
+    port's plan when None), whose end states run from zero, are passed along
+    (``exp`` of the summed log decay), and enter each segment's y."""
+    B, S, H, P = r.shape
+    Q = min(chunk, S)
+    nc = S // Q
+    f32 = torch.float32
+
+    def tiles(a):  # (B, H, nc, 16, P), rows Q..15 zero
+        a = a.to(f32).transpose(1, 2).reshape(B, H, nc, Q, P)
+        return torch.cat([a, a.new_zeros(B, H, nc, 16 - Q, P)], 3)
+
+    rc, kc, vc, lw = (tiles(a) for a in (r, k, v, logw))
+    cw = torch.cumsum(lw, 3)
+    cwp = torch.cat([torch.zeros_like(cw[..., :1, :]), cw[..., :-1, :]], 3)
+    end = cw[..., -1:, :]
+    qn, kn, kd = rc * torch.exp(cwp), kc * torch.exp(-cw), kc * torch.exp(end - cw)
+    bonus = (rc * u.to(f32)[None, :, None, None, :] * kc).sum(-1)
+    i = torch.arange(16)
+    A = torch.where(i[None, :] < i[:, None], _mm_built(qn, kn.transpose(-1, -2)), 0.0)
+    A = A + torch.diag_embed(bonus)
+    y_intra = _mm_half(A, vc)
+    kdv = _mm_half(kd.transpose(-1, -2), vc)  # (B, H, nc, P, P): S[p][q]
+    dec = torch.exp(end[..., 0, :])[..., None]  # (B, H, nc, P, 1)
+    seg = segment_chunks or trw.segment_chunks(B, H, S, P, Q)
+    bounds = [(c, min(c + seg, nc)) for c in range(0, nc, seg)]
+    state, entering = torch.zeros((B, H, P, P)), []
+    for c0, c1 in bounds:  # the segments' end states from zero, passed along
+        entering.append(state)
+        s_end, ld = torch.zeros((B, H, P, P)), torch.zeros((B, H, P))
+        for c in range(c0, c1):
+            s_end = s_end * dec[:, :, c] + kdv[:, :, c]
+            ld = ld + end[:, :, c, 0]
+        state = torch.exp(ld)[..., None] * state + s_end
+    ys = []
+    for (c0, c1), s_in in zip(bounds, entering):  # y from each segment's entering state
+        for c in range(c0, c1):
+            ys.append(y_intra[:, :, c] + _mm_built(qn[:, :, c], s_in))
+            s_in = s_in * dec[:, :, c] + kdv[:, :, c]
+    y = torch.stack(ys, 2)[..., :Q, :].reshape(B, H, S, P)
+    return y.transpose(1, 2).to(r.dtype)
+
+
+@pytest.mark.parametrize("segments", [None, 2])
+@pytest.mark.parametrize("case", RWKV_CASES)
+def test_rwkv6_mma_arithmetic_matches_pallas_and_sequential(case, segments):
+    """hi + lo operands keep the bf16 kernel inside the bf16 tolerance against
+    the Pallas kernel and the sequential oracle, with the port's segment plan
+    and with segments of two chunks (end states, passing, y)."""
+    chunk = case[-1]
+    (jr, tr), (jk, tk), (jv, tv), (jw, tw), (ju, tu) = _rwkv_inputs(case, "bfloat16")
+    got = rwkv6_mma_emulation(tr, tk, tv, tw, tu, chunk=chunk, segment_chunks=segments)
+    assert got.dtype == torch.bfloat16 and got.shape == tr.shape
+    pallas = jops.rwkv6_scan(jr, jk, jv, jw, ju, chunk=chunk, interpret=True)
+    _close(got, pallas, "bfloat16")
+    seq, _ = tref.rwkv6_sequential(tr, tk, tv, tw, tu)
+    _close(got, seq, "bfloat16")
+
+
+def test_rwkv6_mma_rounding_needs_hi_lo():
+    """What the emulation guards: the same scan with every operand built in
+    f32 rounded to bf16 alone leaves the bf16 tolerance at a model-like
+    shape, while the kernel's hi + lo pairs stay well inside it."""
+    (_, tr), (_, tk), (_, tv), (_, tw), (_, tu) = _rwkv_inputs((1, 256, 4, 64, 16), "bfloat16")
+    want, _ = rwkv6_chunked(tr, tk, tv, tw, tu)
+    assert tref.row_limit_ratio(rwkv6_mma_emulation(tr, tk, tv, tw, tu), want, 2e-2) < 0.5
+
+    def hi_only(x):
+        hi = x.bfloat16().float()
+        return hi, torch.zeros_like(hi)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sys.modules[__name__], "_split", hi_only)
+        rounded = rwkv6_mma_emulation(tr, tk, tv, tw, tu)
+    assert tref.row_limit_ratio(rounded, want, 2e-2) > 1.0
+
+
+def test_rwkv6_mma_arithmetic_in_rwkv6_forward(monkeypatch):
+    """The emulated kernel in place of the wkv scan of the rwkv6-3b smoke
+    forward keeps the logits within the bound the bf16 forward is held to
+    against the JAX package."""
+    jc, tc, jp, tp = _pair("rwkv6-3b-smoke", "bfloat16")
+    tok = _tokens(jc)
+    want = np.asarray(jm.forward(jp, jc, jnp.asarray(tok))[0])
+    monkeypatch.setattr(tops, "rwkv6_scan", lambda *a, chunk=16: rwkv6_mma_emulation(
+        *a, chunk=chunk, segment_chunks=1))
+    got, _ = tm.forward(tp, tc, torch.from_numpy(tok).long())
+    np.testing.assert_allclose(got.numpy(), want, **bf16_tol(want))
+
+
+@pytest.mark.parametrize("P", [16, 32, 48, 64])
+def test_rwkv6_segment_plan_counts_the_kernels_warps(P):
+    """The bf16 kernel's segment plan counts the warps the launcher runs: a
+    warp per value_cols(P) columns (32 where they divide P, else 16), so
+    rwkv6-3b-like heads reach about TARGET_WARPS warps and short sequences
+    keep segments of at least MIN_SEGMENT_CHUNKS chunks."""
+    cols = trw.value_cols(P)
+    assert cols == (32 if P % 32 == 0 else 16) and P % cols == 0
+    B, H, S, Q = 1, 40, 32768, 16
+    seg = trw.segment_chunks(B, H, S, P, Q)
+    nseg = -(-(S // Q) // seg)
+    warps = B * H * (P // cols) * nseg
+    assert warps >= trw.TARGET_WARPS > B * H * (P // cols) * (nseg - 1)
+    assert trw.segment_chunks(B, H, 256, P, Q) == 256 // Q  # one segment: a single grid
 
 
 @pytest.mark.parametrize("chunk", [17, 32, 64])
