@@ -15,9 +15,11 @@ Phases, in the order they run, each failing hard:
    library must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
    instructions, the bf16 SSD and RWKV-6 libraries ``HMMA`` (mma.sync) and
    ``LDGSTS`` (cp.async) ones, the f32 flash library ``FFMA`` and ``LDGSTS``
-   ones, each with no ptxas spills; the JRBA library must hold no
-   ``LDL``/``STL`` (local memory) and every kernel of it a 0-byte stack
-   frame.
+   ones, each with no ptxas spills; the f32 SSD and RWKV-6 libraries
+   ``FFMA`` and ``LDGSTS`` ones, no ``LDL``/``STL``, and every instance no
+   spills and a 0-byte stack frame (ptxas's registers shown); the JRBA
+   library must hold no ``LDL``/``STL`` (local memory) and every kernel of
+   it a 0-byte stack frame.
 3. Flash attention against plain: the two CUDA kernels (bf16 on the tensor
    cores, ``flash_attention_wgmma.cu``; f32 on the CUDA cores,
    ``flash_attention.cu``) against their plain version
@@ -38,10 +40,12 @@ Phases, in the order they run, each failing hard:
    the CUDA cores, ``rwkv6_scan.cu``), through the model-layout wrappers,
    against their chunked plain versions at zamba2-7b's (H=112, P=N=64,
    chunk 64) and rwkv6-3b's (H=40, P=64, chunk 16) heads at S=32768
-   and 4096, then at ``tests/test_kernels.py``'s cases (also against the
-   sequential oracles), bf16 and f32, with that file's tolerances (rtol, and
-   atol as a share of each output row's root mean square). Kernel and plain
-   version are timed; no single PyTorch call computes a chunked scan.
+   and 4096, then at ``tests/test_kernels.py``'s cases and, for the SSD, at
+   the odd chunks the model passes for short prompts (48, 37, 24, 8; also
+   against the sequential oracles), bf16 and f32, with that file's
+   tolerances (rtol, and atol as a share of each output row's root mean
+   square). Kernel and plain version are timed; no single PyTorch call
+   computes a chunked scan.
 5. Prefill, for gemma3-1b (999,812,736 parameters), zamba2-7b (7,586,693,952)
    and rwkv6-3b (2,863,516,160) in turn, each at full width and depth from
    the port's seeded init and freed before the next: ``prefill`` at B=1,
@@ -53,8 +57,11 @@ Phases, in the order they run, each failing hard:
    S=4096 the
    last-position logits through the kernels and through their plain versions
    must agree within the model's limit (a share of the largest logit, 2-4x
-   the gap read on the card) with the same top-1 token. A profiler window
-   shows where the prefill's time goes.
+   the gap read on the card) with the same top-1 token, and so must
+   zamba2-7b's at S=48, whose SSD chunk of 48 has no tile instance of its
+   own. A profiler window shows where the prefill's time goes. The f32
+   checks' kernel-path prefill at S=4096 is profiled once (the f32 scans'
+   grids a call, held to their plans) and timed warm with CUDA events.
 6. Serving: ``ServingEngine`` on the same weights (gemma3-1b: 16 requests of
    16-256 prompt tokens and 32 new ones, 8 slots, max_len 1024; zamba2-7b
    and rwkv6-3b: 8 requests of 16-64 and 16 new, 4 slots, max_len 256, so
@@ -100,9 +107,11 @@ SSD kernel's zamba2-7b's (68), the f32 RWKV-6 kernel's rwkv6-3b's (32).
 ``flash_attention_hsd.launches``, ``ssd_scan_hsd.launches`` and
 ``rwkv6_scan_hsd.launches`` each count their two kernels, and each must
 equal their sum on every path. A bf16 RWKV-6 call counts one launch however
-many grids it runs (three for a sequence of more than one segment); its
-record's ``grids_per_call`` is the count of its grids in the profiled
-rwkv6-3b prefill's trace over its calls there, and must match its plan.
+many grids it runs (three for a sequence of more than one segment), and so
+do the f32 RWKV-6 kernel and the f32 SSD kernel (C B^T and y, two more for
+more than one segment); each record's ``grids_per_call`` is the count of
+its grids in its profiled prefill's trace (rwkv6-3b's bf16 one at S=32768,
+the f32 ones at S=4096) over its calls there, and must match its plan.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -178,8 +187,13 @@ COUNTERS = {
 }
 # the device kernels a launcher's call may run as grids of its own, by the
 # substrings of their names in the profiler's trace
-GRID_KERNELS = {"rwkv6_scan_mma": ("rwkv6_mma_kernel", "rwkv6_pass_states")}
-# grids a call, read from the profiled main-path prefill (prefill_phase)
+GRID_KERNELS = {
+    "rwkv6_scan_mma": ("rwkv6_mma_kernel", "rwkv6_pass_states"),
+    "ssd_scan": ("ssd_gram_kernel", "ssd_f32_kernel", "ssd_pass_states"),
+    "rwkv6_scan": ("rwkv6_f32_kernel", "rwkv6_f32_pass_states"),
+}
+# grids a call, read from each kernel's profiled prefill: the bf16 RWKV-6
+# kernel's at S=32768 (prefill_phase), the f32 scans' at S=4096 (f32_phase)
 GRIDS_PER_CALL: dict[str, float] = {}
 # each dtype-routing wrapper's count is the sum of its kernels' counts
 ROUTED = {
@@ -365,6 +379,35 @@ def flash_f32_evidence(ptxas: str) -> dict:
     return out
 
 
+def scan_f32_evidence(name: str, ptxas: str, kernels: dict) -> dict:
+    """An f32 scan library's SASS counts (FMAs, cp.async, shared loads,
+    shuffles, barriers, local memory) and ptxas's registers, spills and stack
+    frame for each instance of its kernels (``kernels`` maps an entry name to
+    the labels of its template arguments); fails unless it loads by cp.async,
+    spills nothing and keeps no stack frame."""
+    counts = sass_counts(name, ("FFMA", "LDGSTS", "LDS", "SHFL", "BAR", "LDL", "STL"))
+    instances = {}
+    for kernel, labels in kernels.items():
+        for e in ptxas_entries(ptxas, kernel):
+            args = re.findall(r"L([ib])(\d+)E", e["entry"].split(kernel, 1)[1])
+            label = ",".join(f"{k}={v}" for k, (_, v) in zip(labels, args))
+            instances[f"{kernel}<{label}>"] = {
+                k: e[k] for k in ("registers", "spill_stores", "spill_loads", "stack_frame")}
+    out = {"sass": counts, "ptxas": instances}
+    log(f"[build] {name} evidence: {json.dumps(out)}")
+    assert counts["FFMA"] > 0 and counts["LDGSTS"] > 0, f"no FMAs or cp.async in {name}"
+    assert instances, f"ptxas reported no instances of {sorted(kernels)}"
+    assert all(i["spill_stores"] == i["spill_loads"] == 0 for i in instances.values()), "spills"
+    assert all(i["stack_frame"] == 0 for i in instances.values()), "stack frames"
+    assert counts["LDL"] == counts["STL"] == 0, f"local memory in {name}"
+    return out
+
+
+# the f32 scans' kernel templates, by the labels of their arguments
+SSD_F32_KERNELS = {"ssd_gram_kernel": ("Q",), "ssd_f32_kernel": ("Q", "PB", "y")}
+RWKV_F32_KERNELS = {"rwkv6_f32_kernel": ("P", "NCOL", "y")}
+
+
 def jrba_evidence(ptxas: str) -> dict:
     """The JRBA library's local-memory instructions (none allowed) and each
     kernel instance's stack frame (0 bytes required), registers and spills."""
@@ -517,11 +560,14 @@ def flash_phase(device) -> list[dict]:
 # ---------------------------------------------------------------------------
 # phase 4: the SSM scan kernels against their plain versions
 # ---------------------------------------------------------------------------
-# tests/test_kernels.py's SSD_CASES (B, S, H, P, N, chunk) and RWKV_CASES
-# (B, S, H, P, chunk), then the heads of zamba2-7b and rwkv6-3b at the
-# lengths of the prefills below; bf16 and f32 each, the record first
+# tests/test_kernels.py's SSD_CASES (B, S, H, P, N, chunk), then chunks the
+# model passes for prompts under 64 tokens (48, 37, 24 and 8: no tile
+# instance of their own), and RWKV_CASES (B, S, H, P, chunk); then the heads
+# of zamba2-7b and rwkv6-3b at the lengths of the prefills below; bf16 and
+# f32 each, the record first
 SSD_CASES = [(2, 128, 2, 16, 8, 32), (1, 256, 4, 64, 64, 64), (2, 64, 1, 32, 16, 64),
-             (1, 512, 2, 64, 32, 128)]
+             (1, 512, 2, 64, 32, 128), (2, 96, 3, 64, 16, 48), (1, 37, 2, 64, 64, 37),
+             (2, 64, 2, 32, 16, 8), (1, 120, 2, 16, 8, 24)]
 RWKV_CASES = [(2, 128, 2, 16, 16), (1, 256, 4, 64, 16), (2, 64, 1, 32, 8), (1, 512, 2, 64, 16)]
 SSD_MODEL = [(1, 32768, 112, 64, 64, 64), (1, 4096, 112, 64, 64, 64)]
 RWKV_MODEL = [(1, 32768, 40, 64, 16), (1, 4096, 40, 64, 16)]
@@ -683,7 +729,10 @@ LIMITS = {
     "zamba2-7b": dict(prefill=0.12, decode=0.13, flips=10, prefill_f32=3e-5, decode_f32=3e-5),
     "rwkv6-3b": dict(prefill=0.1, decode=0.3, flips=22, prefill_f32=2e-5, decode_f32=1e-3),
 }
-DECODE_LEN = 64  # the f32 decode-vs-forward prompt: a chunk every kernel takes
+DECODE_LEN = 64  # the f32 decode-vs-forward prompt
+# zamba2-7b's short prefill check: a prompt under 64 tokens whose SSD chunk
+# (min(64, pick_chunk(S)) = 48) has no tile instance of its own
+SHORT_LEN = 48
 
 
 @contextlib.contextmanager
@@ -807,6 +856,16 @@ def prefill_phase(arch: str, device, card) -> tuple:
                                        params, cfg, short)
     logits_close(f"{arch} prefill S={CHECK_LEN} kernel vs plain", k_logits, p_logits,
                  LIMITS[arch]["prefill"], min_top1=1.0)
+    short_counts = {}
+    if "ssd_scan_mma" in expect:  # a chunk with no tile instance of its own
+        tiny = tokens[:, :SHORT_LEN]
+        (k_logits, _), short_counts = counted_all(
+            f"{arch} prefill S={SHORT_LEN} (kernel)", expect, prefill, params, cfg, tiny)
+        with plain_kernels():
+            (p_logits, _), _ = counted_all(f"{arch} prefill S={SHORT_LEN} (plain)", {}, prefill,
+                                           params, cfg, tiny)
+        logits_close(f"{arch} prefill S={SHORT_LEN} kernel vs plain", k_logits, p_logits,
+                     LIMITS[arch]["prefill"], min_top1=1.0)
     calls = {name: COUNTERS[name].launches for name in GRID_KERNELS}
     prof = profile_window(f"{arch} prefill S={PREFILL_LEN}", card, prefill, params, cfg, tokens,
                           grids=GRID_KERNELS)
@@ -817,7 +876,8 @@ def prefill_phase(arch: str, device, card) -> tuple:
             log(f"[profile] {name}: {prof['device_grids'][name]} grids in {calls[name]} calls")
     by_path = {
         name: {f"{arch}:prefill_{PREFILL_LEN}": counts[name],
-               f"{arch}:prefill_{CHECK_LEN}": k_counts[name]}
+               f"{arch}:prefill_{CHECK_LEN}": k_counts[name],
+               **({f"{arch}:prefill_{SHORT_LEN}": short_counts[name]} if short_counts else {})}
         for name in expect
     }
     return cfg, params, by_path
@@ -910,12 +970,14 @@ def decode_logits(params, cfg, toks, device):
     return torch.cat(outs, 1)
 
 
-def f32_phase(arch: str, cfg, params, device) -> dict:
+def f32_phase(arch: str, cfg, params, device, card) -> tuple[dict, dict]:
     """The two logit checks with the same weights upcast to f32: kernel path
     against plain path at S=4096, and decode against the kernel-path forward
     on the first 64 tokens. What the bf16 checks show beyond these gaps is
-    the amplification of bf16 rounding, not the kernels. Returns each
-    kernel's launches by path."""
+    the amplification of bf16 rounding, not the kernels. The kernel-path
+    prefill is then profiled once (the f32 scans' grids a call) and timed
+    warm with CUDA events. Returns each kernel's launches by path and the
+    prefill's record."""
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p32 = tree_map(lambda t: t.float(), params)
     tokens = prompt_tokens(cfg, device)
@@ -928,6 +990,18 @@ def f32_phase(arch: str, cfg, params, device) -> dict:
                                        p32, cfg32, short)
     logits_close(f"{arch} f32 prefill S={CHECK_LEN} kernel vs plain", k_logits, p_logits,
                  LIMITS[arch]["prefill_f32"], min_top1=1.0)
+    calls = {name: COUNTERS[name].launches for name in GRID_KERNELS}
+    prof = profile_window(f"{arch} f32 prefill S={CHECK_LEN}", card, prefill, p32, cfg32, short,
+                          grids=GRID_KERNELS)
+    for name in GRID_KERNELS:
+        calls[name] = COUNTERS[name].launches - calls[name]
+        if calls[name] and name in expect:
+            GRIDS_PER_CALL[name] = prof["device_grids"][name] / calls[name]
+            log(f"[profile] {name}: {prof['device_grids'][name]} grids in {calls[name]} calls")
+    stats = {"arch": arch, "dtype": "float32", "seq": CHECK_LEN,
+             "ms": time_call(prefill, (p32, cfg32, short), {}, reps=2, warm=0)}
+    stats["tokens_per_s"] = CHECK_LEN / stats["ms"] * 1e3
+    log(f"[prefill] {json.dumps(stats)} [{card}]")
     toks = tokens[:, :DECODE_LEN]
     (fwd, _), f_counts = counted_all(f"{arch} f32 forward S={DECODE_LEN}", expect, forward, p32,
                                      cfg32, toks)
@@ -936,7 +1010,7 @@ def f32_phase(arch: str, cfg, params, device) -> dict:
     del p32
     torch.cuda.empty_cache()
     return {name: {f"{arch}:f32_prefill_{CHECK_LEN}": k_counts[name],
-                   f"{arch}:f32_forward_{DECODE_LEN}": f_counts[name]} for name in expect}
+                   f"{arch}:f32_forward_{DECODE_LEN}": f_counts[name]} for name in expect}, stats
 
 
 # ---------------------------------------------------------------------------
@@ -1156,9 +1230,10 @@ def compare(label: str, got: list, want: list) -> float:
     return worst
 
 
-def time_call(fn, args, kwargs, reps: int) -> float:
-    """Mean milliseconds per call, CUDA events around ``reps`` warm calls."""
-    for _ in range(2):
+def time_call(fn, args, kwargs, reps: int, warm: int = 2) -> float:
+    """Mean milliseconds per call, CUDA events around ``reps`` calls after
+    ``warm`` untimed ones."""
+    for _ in range(warm):
         fn(*args, **kwargs)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1418,17 +1493,22 @@ def main() -> int:
     ssd_evidence = ssd_mma_evidence(ptxas["ssd_scan_mma"])
     rwkv_evidence = rwkv6_mma_evidence(ptxas["rwkv6_scan_mma"])
     f32_flash_evidence = flash_f32_evidence(ptxas["flash_attention"])
+    ssd_f32_sass = scan_f32_evidence("ssd_scan", ptxas["ssd_scan"], SSD_F32_KERNELS)
+    assert len(ssd_f32_sass["ptxas"]) == len(ssd.CHUNKS) * 5, "ssd_scan instances"
+    rwkv_f32_sass = scan_f32_evidence("rwkv6_scan", ptxas["rwkv6_scan"], RWKV_F32_KERNELS)
+    assert len(rwkv_f32_sass["ptxas"]) == 8, "rwkv6_scan instances"
     jrba_sass = jrba_evidence(ptxas["jrba_congestion"])
     flash_timings = flash_phase(device)
     log(f"[time] after flash phase {time.perf_counter() - t_start:.1f} s")
     scan_timings = scan_phase(device)
     log(f"[time] after scan phase {time.perf_counter() - t_start:.1f} s")
     model_paths: dict[str, dict] = {name: {} for name in COUNTERS}
+    f32_prefills = {}
     for arch in FORWARD_LAUNCHES:  # one model on the card at a time
         cfg, params, by_path = prefill_phase(arch, device, card)
         log(f"[time] after {arch} prefill phase {time.perf_counter() - t_start:.1f} s")
-        for paths in (by_path, serving_phase(arch, cfg, params, device, card),
-                      f32_phase(arch, cfg, params, device)):
+        f32_paths, f32_prefills[arch] = f32_phase(arch, cfg, params, device, card)
+        for paths in (by_path, serving_phase(arch, cfg, params, device, card), f32_paths):
             for name, counts in paths.items():
                 model_paths[name].update(counts)
         del params
@@ -1447,7 +1527,7 @@ def main() -> int:
     # each model kernel's main path is the S=32768 prefill of its model:
     # gemma3-1b for bf16 flash attention, zamba2-7b for bf16 SSD, rwkv6-3b for
     # RWKV-6; the f32 kernels' are the f32 prefills at S=4096 of gemma3-1b
-    # (flash attention) and zamba2-7b (SSD)
+    # (flash attention), zamba2-7b (SSD) and rwkv6-3b (RWKV-6)
     main_path = f"prefill_{PREFILL_LEN}"
     by_dtype = {d: [t for t in flash_timings if t["dtype"] == d] for d in ("bfloat16", "float32")}
     f32 = sorted(by_dtype["float32"], key=lambda t: (  # the f32 prefill's windowed shape first
@@ -1462,27 +1542,40 @@ def main() -> int:
     ]
     ssd_rows = scan_timings["ssd_scan"]
     rwkv_rows = scan_timings["rwkv6_scan"]
-    # the bf16 RWKV-6 kernel's grids a call, counted in the profiled
-    # rwkv6-3b prefill: three when its plan cuts the sequence into more than
-    # one segment (end states, passing, y), else one
+    # each scan's grids a call, counted in its profiled prefill: the bf16
+    # RWKV-6 kernel's at S=32768, the f32 scans' at S=4096. The RWKV-6
+    # kernels run three when their plan cuts the sequence into more than one
+    # segment (end states, passing, y), else one; the f32 SSD kernel runs
+    # C B^T first, so four or two
     B_, S_, H_, P_, Q_ = RWKV_MODEL[0]
+    Bs, _, Hs, Ps, _, Qs = SSD_MODEL[1]
+    planned = {
+        "rwkv6_scan_mma": 3 if rw.segment_chunks(B_, H_, S_, P_, Q_) < S_ // Q_ else 1,
+        "rwkv6_scan": 3 if rw.segment_chunks(B_, H_, CHECK_LEN, P_, Q_) < CHECK_LEN // Q_ else 1,
+        "ssd_scan": 4 if ssd.segment_chunks(Bs, Hs, CHECK_LEN, Ps, Qs) < CHECK_LEN // Qs else 2,
+    }
+    for name, grids in planned.items():
+        assert GRIDS_PER_CALL[name] == grids, (
+            f"{name} ran {GRIDS_PER_CALL[name]} grids a call, planned {grids}")
     rwkv_grids = GRIDS_PER_CALL["rwkv6_scan_mma"]
-    planned = 3 if rw.segment_chunks(B_, H_, S_, P_, Q_) < S_ // Q_ else 1
-    assert rwkv_grids == planned, f"rwkv6_scan_mma ran {rwkv_grids} grids a call, planned {planned}"
     scans = [
         scan_record("ssd_scan_mma", [t for t in ssd_rows if t["kernel"] == "ssd_scan_mma"],
                     model_paths["ssd_scan_mma"][f"zamba2-7b:{main_path}"],
                     model_paths["ssd_scan_mma"], {"evidence": ssd_evidence}),
         scan_record("ssd_scan", [t for t in ssd_rows if t["kernel"] == "ssd_scan"],
                     model_paths["ssd_scan"][f"zamba2-7b:f32_prefill_{CHECK_LEN}"],
-                    model_paths["ssd_scan"]),
+                    model_paths["ssd_scan"],
+                    {"evidence": ssd_f32_sass, "grids_per_call": GRIDS_PER_CALL["ssd_scan"],
+                     "f32_prefill": f32_prefills["zamba2-7b"]}),
         scan_record("rwkv6_scan_mma", [t for t in rwkv_rows if t["kernel"] == "rwkv6_scan_mma"],
                     model_paths["rwkv6_scan_mma"][f"rwkv6-3b:{main_path}"],
                     model_paths["rwkv6_scan_mma"],
                     {"evidence": rwkv_evidence, "grids_per_call": rwkv_grids}),
         scan_record("rwkv6_scan", [t for t in rwkv_rows if t["kernel"] == "rwkv6_scan"],
                     model_paths["rwkv6_scan"][f"rwkv6-3b:f32_prefill_{CHECK_LEN}"],
-                    model_paths["rwkv6_scan"]),
+                    model_paths["rwkv6_scan"],
+                    {"evidence": rwkv_f32_sass, "grids_per_call": GRIDS_PER_CALL["rwkv6_scan"],
+                     "f32_prefill": f32_prefills["rwkv6-3b"]}),
     ]
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")
     log(card)

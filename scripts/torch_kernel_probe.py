@@ -4,7 +4,7 @@ kernels and RWKV-6 scans on one NVIDIA GPU.
 
 Usage, from the repository root on a machine with a CUDA card::
 
-    python3 scripts/torch_kernel_probe.py [--parts jrba ssd flash rwkv]
+    python3 scripts/torch_kernel_probe.py [--parts jrba ssd ssd32 flash rwkv rwkv32]
         [--stream-seeds 0] [--out build/kernel_probe.json]
 
 Builds the parts' libraries (``jrba_congestion``; ``ssd_scan_mma`` and
@@ -37,9 +37,22 @@ then:
   and power while the kernel runs back to back;
 * RWKV-6: both kernels against their plain version at rwkv6-3b's heads
   (S=32768 and 4096) and at ``tests/test_kernels.py``'s cases, timed, then
-  the bf16 kernel at S=32768 with the sequence cut into segments of other
+  the bf16 kernel at S=32768 and 4096 with the sequence cut into segments of other
   lengths (the port's plan replaced) and through diagnostic builds that fix
   the value columns a warp takes (16 or 64, with the segment plan counting
+  that many warps);
+* ssd32: the f32 SSD kernel alone, against its plain version at zamba2-7b's
+  heads (S=32768 and 4096) and at ``chip_smoke.py``'s cases (the odd chunks
+  included), timed; then at both lengths with the sequence cut into other
+  numbers of segments (the port's plan replaced) and through diagnostic
+  builds: 32 value columns a block (its plan counting those blocks),
+  __expf, the rows of y in warp order, no unrolling, and
+  builds that skip the C B^T grid or empty one part (C H, W x, the state
+  update, W), whose output is wrong: the time they leave is that part's;
+* rwkv32: the f32 RWKV-6 kernel alone, against its plain version at
+  rwkv6-3b's heads (S=32768 and 4096) and at ``tests/test_kernels.py``'s
+  cases, timed; then at both lengths with other segment lengths, and through
+  diagnostic builds of 16 and 64 value columns a warp (the plan counting
   that many warps).
 
 A diagnostic build is the port's source with a few lines replaced, written
@@ -82,8 +95,8 @@ from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.obs.trace import dumps_strict  # noqa: E402
 
 LIBRARIES = {"jrba": ("jrba_congestion",), "ssd": ("ssd_scan_mma", "ssd_scan"),
-             "flash": ("flash_attention", "flash_attention_wgmma"),
-             "rwkv": ("rwkv6_scan_mma", "rwkv6_scan")}
+             "ssd32": ("ssd_scan",), "flash": ("flash_attention", "flash_attention_wgmma"),
+             "rwkv": ("rwkv6_scan_mma", "rwkv6_scan"), "rwkv32": ("rwkv6_scan",)}
 # diagnostic builds of the JRBA source: what each changes says what its
 # arithmetic costs (the port builds only _build.NVCC_FLAGS)
 JRBA_VARIANTS = {
@@ -95,11 +108,36 @@ JRBA_VARIANTS = {
 # Diagnostic builds: each is a list of (text, replacement) edits of the
 # port's source, every text of which must occur in it.
 # the bf16 SSD source at one block width each
-SSD_DISPATCH = ("  if (P % 32 == 0) return dispatch_q<32>(Q, x, dtf, Af, Bm, Cm, y, B, H, S, P, N, "
-                "st, vec, s);\n")
+SSD_ARGS = "(tile, x, dtf, Af, Bm, Cm, y, B, H, S, P, N, Q, st, vec, s);\n"
+SSD_DISPATCH = "  if (P % 32 == 0)\n    return dispatch_q<32>" + SSD_ARGS
 SSD_VARIANTS = {f"block_cols_{pb}": [(SSD_DISPATCH, f"  if (P % {pb} != 0) return 1;\n"
-                                      f"  return dispatch_q<{pb}>(Q, x, dtf, Af, Bm, Cm, y, B, H, "
-                                      "S, P, N, st, vec, s);\n")] for pb in (16, 32, 64)}
+                                      f"  return dispatch_q<{pb}>" + SSD_ARGS)]
+                for pb in (16, 32, 64)}
+# the f32 SSD source at 32 value columns a block where P allows (the probe's
+# plan counts those blocks), and without its C B^T grid (timing only)
+SSD32_VARIANTS = {
+    "block_cols_32": [("pb != (P % 64 == 0 ? 64 : 16)", "pb != (P % 64 == 0 ? 32 : 16)"),
+                      ("  if (pb == 64)\n    return launch<Q, 64>(",
+                       "  if (pb == 32)\n    return launch<Q, 32>(")],
+    "no_gram": [("  ssd_gram_kernel<Q><<<", "  if (false) ssd_gram_kernel<Q><<<")],
+}
+SSD32_VARIANTS.update({
+    "expf_fast": [("expf(", "__expf(")],
+    "rows_in_order": [("const int rb = warp < WARPS / 2 ? warp : 3 * WARPS / 2 - 1 - warp;",
+                       "const int rb = warp;")],
+    "no_unroll_2": [("#pragma unroll 2\n", "")],
+})
+# the f32 SSD source with one part emptied (timing only): C H, W x, the
+# state update's products, the W transform
+SSD32_SPLIT = {
+    "no_ch": [("for (int n = 0; n < n4; n += 4) {\n        float4 cv[TQ];",
+               "for (int n = 0; n < 0; n += 4) {\n        float4 cv[TQ];")],
+    "no_wx": [("for (int j = 0; j < jend; j += 4) {", "for (int j = 0; j < 0; j += 4) {")],
+    "no_state": [("for (int j = 0; j < q4; ++j) {", "for (int j = 0; j < 0; ++j) {")],
+    "no_w": [("        if (j < jl) {", "        if (false) {")],
+}
+# segments a call the f32 SSD kernel is timed at, beside the plan's
+SSD32_SEGMENTS = (1, 2, 4, 8)
 # the bf16 RWKV-6 source with a warp width of 16 or 64 at P=64; the probe
 # plans the segments for that many warps (rw.value_cols patched alike)
 RWKV_COLS = (16, 64)
@@ -107,6 +145,25 @@ RWKV_VARIANTS = {f"cols_{nc}": [
     ("ncol != (P % 32 == 0 ? 32 : 16)", f"ncol != (P == 64 ? {nc} : P % 32 == 0 ? 32 : 16)"),
     ("default: return launch<64, 32>(", f"default: return launch<64, {nc}>("),
 ] for nc in RWKV_COLS}
+# the same for the f32 RWKV-6 source
+RWKV32_VARIANTS = {f"cols_{nc}": [
+    ("ncol != (P % 32 == 0 ? 32 : 16)", f"ncol != (P == 64 ? {nc} : P % 32 == 0 ? 32 : 16)"),
+    ("    default:\n      return launch<64, 32>(", f"    default:\n      return launch<64, {nc}>("),
+] for nc in RWKV_COLS}
+# the f32 RWKV-6 source with one part emptied (timing only): A, the y
+# products, the state update's products; and with __expf for expf
+RWKV32_SPLIT = {
+    "no_a": [("        const float4 qv = *reinterpret_cast<const float4*>(rs + c * L::RS",
+              "        if (true) break;\n        const float4 qv = "
+              "*reinterpret_cast<const float4*>(rs + c * L::RS")],
+    "no_y": [("          const float4 qv = *reinterpret_cast<const float4*>(rs + i * L::RS",
+              "          if (true) break;\n          const float4 qv = "
+              "*reinterpret_cast<const float4*>(rs + i * L::RS")],
+    "no_state": [("        const float4 kd = *reinterpret_cast<const float4*>(ks + i * L::RS",
+                  "        if (true) break;\n        const float4 kd = "
+                  "*reinterpret_cast<const float4*>(ks + i * L::RS")],
+    "expf_fast": [("expf(", "__expf(")],
+}
 # the f32 flash source: rows a thread, kv tile and row groups at D <= 128,
 # and the unrolling of both product loops
 FLASH_TILE = ", 8, 64, 16>("
@@ -131,7 +188,7 @@ FLASH_SPLIT_SHAPES = ((1, 4096, 32, 32, 112, 0), (1, 4096, 16, 8, 128, 0))
 # and modifier they come with (LDS and LDS.128 apart)
 SPLIT_OPS = ("FFMA", "LDS", "LDGSTS", "BAR", "SHFL")
 # segment lengths (chunks) the bf16 RWKV-6 kernel is timed at, beside the plan's
-RWKV_SEGMENTS = (16, 32, 64, 128, 256)
+RWKV_SEGMENTS = (8, 12, 16, 32, 64, 128, 256)
 
 
 def build_variant(name: str, label: str, edits: list) -> ctypes.CDLL:
@@ -148,8 +205,9 @@ def build_variant(name: str, label: str, edits: list) -> ctypes.CDLL:
     variant = _build.BUILD_DIR / f"{name}_variant_{label}.cu"
     variant.write_text(text)
     lib = variant.with_suffix(".so")
-    out = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-                          str(lib), str(variant)], check=True, capture_output=True, text=True)
+    out = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+                          "-I", str(_build.CSRC), "-o", str(lib), str(variant)],
+                         check=True, capture_output=True, text=True)
     spills = [e for e in cs.ptxas_entries(out.stdout + out.stderr)
               if e["spill_stores"] or e["spill_loads"]]
     print(f"[build] {name} {label}: {len(spills)} entries spill "
@@ -387,14 +445,99 @@ def rwkv_variants(shape, device) -> dict:
         return {"ms": ms, "max_abs_diff_from_port": diff}
 
     for seg in RWKV_SEGMENTS:
-        with mock.patch.object(rw, "segment_chunks", lambda *a, seg=seg: seg):
-            out[f"segment_{seg}"] = measured()
+        if seg < S // Q:
+            with mock.patch.object(rw, "segment_chunks", lambda *a, seg=seg: seg):
+                out[f"segment_{seg}"] = measured()
     for (name, lib), nc in zip(build_variants("rwkv6_scan_mma", RWKV_VARIANTS).items(),
                                RWKV_COLS):
         with wrappers_load("rwkv6_scan_mma", lib), mock.patch.object(
                 rw, "value_cols", lambda P, nc=nc: nc if P == 64 else 32 if P % 32 == 0 else 16):
             out[name] = {"segment_chunks": rw.segment_chunks(B, H, S, P, Q), **measured()}
     print(f"[rwkv] {list(shape)} variants: {dumps_strict(out)}", flush=True)
+    return out
+
+
+def scan_hsd(name: str, shape, dtype, device) -> tuple:
+    """``chip_smoke.scan_inputs`` in the kernels' heads-major layout."""
+    args = cs.scan_inputs(name, shape, dtype, device)
+    t = lambda a: a.transpose(1, 2)  # noqa: E731
+    if name == "ssd_scan":
+        x, dt, A, Bm, Cm = args
+        return t(x), t(dt), A, Bm, Cm
+    return (*map(t, args[:4]), args[4])
+
+
+def timed_against_port(fn, hsd, chunk: int, port) -> dict:
+    ms = cs.time_call(fn, hsd, dict(chunk=chunk), reps=5)
+    diff = float((fn(*hsd, chunk=chunk).float() - port.float()).abs().max())
+    return {"ms": ms, "max_abs_diff_from_port": diff}
+
+
+def ssd32_variants(shapes, device) -> dict:
+    """The f32 SSD kernel's milliseconds at other segment counts and through
+    each diagnostic build (:data:`SSD32_VARIANTS`: 32 columns a block with
+    its plan counting those blocks, __expf, no C B^T grid, the rows of y in
+    warp order, no unrolling of the y products;
+    :data:`SSD32_SPLIT`: one part emptied), beside the port's plan and
+    build."""
+    libs = build_variants("ssd_scan", {**SSD32_VARIANTS, **SSD32_SPLIT})
+    cols32 = mock.patch.object(ssd, "block_cols", lambda P: 32 if P % 64 == 0 else 16)
+    out = {}
+    for shape in shapes:
+        B, S, H, P, N, Q = shape
+        hsd = scan_hsd("ssd_scan", shape, torch.float32, device)
+        port = ssd.ssd_scan_hsd(*hsd, chunk=Q)
+        nchunks = S // Q
+        row = {"plan_segment_chunks": ssd.segment_chunks(B, H, S, P, Q),
+               "port_ms": cs.time_call(ssd.ssd_scan_hsd, hsd, dict(chunk=Q), reps=5)}
+
+        def segments(nseg):
+            return mock.patch.object(ssd, "segment_chunks",
+                                     lambda *a, seg=-(-nchunks // nseg): seg)
+
+        for nseg in SSD32_SEGMENTS:
+            with segments(nseg):
+                row[f"segments_{nseg}"] = timed_against_port(ssd.ssd_scan_hsd, hsd, Q, port)
+        for name, lib in libs.items():
+            plans = [("", contextlib.nullcontext())]
+            if name.startswith("block_cols_32"):
+                plans = [("", cols32)]
+            for suffix, plan in plans:
+                with wrappers_load("ssd_scan", lib), plan:
+                    row[name + suffix] = timed_against_port(ssd.ssd_scan_hsd, hsd, Q, port)
+        row["gram_share_ms"] = row["port_ms"] - row["no_gram"]["ms"]
+        out[str(list(shape))] = row
+        print(f"[ssd32] {list(shape)} variants: {dumps_strict(row)}", flush=True)
+    return out
+
+
+def rwkv32_variants(shapes, device) -> dict:
+    """The f32 RWKV-6 kernel's milliseconds at other segment lengths, warp
+    widths (the plan counting that many warps) and through the diagnostic
+    builds of :data:`RWKV32_SPLIT`, beside the port's plan and build."""
+    libs = build_variants("rwkv6_scan", {**RWKV32_VARIANTS, **RWKV32_SPLIT})
+    out = {}
+    for shape in shapes:
+        B, S, H, P, Q = shape
+        hsd = scan_hsd("rwkv6_scan", shape, torch.float32, device)
+        port = rw.rwkv6_scan_hsd(*hsd, chunk=Q)
+        row = {"plan_segment_chunks": rw.segment_chunks(B, H, S, P, Q),
+               "port_ms": cs.time_call(rw.rwkv6_scan_hsd, hsd, dict(chunk=Q), reps=5)}
+        for seg in RWKV_SEGMENTS:
+            if seg < S // Q:
+                with mock.patch.object(rw, "segment_chunks", lambda *a, seg=seg: seg):
+                    row[f"segment_{seg}"] = timed_against_port(rw.rwkv6_scan_hsd, hsd, Q, port)
+        for name, lib in libs.items():
+            plan = contextlib.nullcontext()
+            if name.startswith("cols_"):
+                nc = int(name[5:])
+                plan = mock.patch.object(
+                    rw, "value_cols", lambda P, nc=nc: nc if P == 64 else 32 if P % 32 == 0 else 16)
+            with wrappers_load("rwkv6_scan", lib), plan:
+                row[name] = {"segment_chunks": rw.segment_chunks(B, H, S, P, Q),
+                             **timed_against_port(rw.rwkv6_scan_hsd, hsd, Q, port)}
+        out[str(list(shape))] = row
+        print(f"[rwkv32] {list(shape)} variants: {dumps_strict(row)}", flush=True)
     return out
 
 
@@ -424,7 +567,7 @@ def main() -> int:
             result["failed"].append(label)
             return None
 
-    names = [n for part in opts.parts for n in LIBRARIES[part]]
+    names = sorted({n for part in opts.parts for n in LIBRARIES[part]})
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         built = list(pool.map(lambda n: _build.build(n, ptxas_verbose=True, force=True), names))
@@ -476,7 +619,29 @@ def main() -> int:
             for dt in (torch.bfloat16, torch.float32):
                 check(f"rwkv {str(dt)[6:]} {shape}", cs.scan_case, "rwkv6_scan", shape, dt,
                       device, 5, True)
-        check("rwkv variants", rwkv_variants, cs.RWKV_MODEL[0], device)
+        for shape in cs.RWKV_MODEL:
+            check(f"rwkv variants {shape}", rwkv_variants, shape, device)
+
+    if "ssd32" in opts.parts:
+        check("ssd32_evidence", cs.scan_f32_evidence, "ssd_scan", ptxas["ssd_scan"],
+              cs.SSD_F32_KERNELS)
+        for shape in cs.SSD_MODEL:
+            check(f"ssd32 {shape}", cs.scan_case, "ssd_scan", shape, torch.float32, device, 5,
+                  False)
+        for shape in cs.SSD_CASES:
+            check(f"ssd32 {shape}", cs.scan_case, "ssd_scan", shape, torch.float32, device, 5,
+                  True)
+        check("ssd32 variants", ssd32_variants, cs.SSD_MODEL, device)
+    if "rwkv32" in opts.parts:
+        check("rwkv32_evidence", cs.scan_f32_evidence, "rwkv6_scan", ptxas["rwkv6_scan"],
+              cs.RWKV_F32_KERNELS)
+        for shape in cs.RWKV_MODEL:
+            check(f"rwkv32 {shape}", cs.scan_case, "rwkv6_scan", shape, torch.float32, device, 5,
+                  False)
+        for shape in cs.RWKV_CASES:
+            check(f"rwkv32 {shape}", cs.scan_case, "rwkv6_scan", shape, torch.float32, device, 5,
+                  True)
+        check("rwkv32 variants", rwkv32_variants, cs.RWKV_MODEL, device)
 
     print(card, flush=True)
     Path(opts.out).parent.mkdir(parents=True, exist_ok=True)

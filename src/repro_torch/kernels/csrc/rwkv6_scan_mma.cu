@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan_pass.cuh"
+
 namespace {
 
 constexpr int QT = 16;  // rows of a chunk tile (chunks shorter than 16 are zero-padded)
@@ -450,21 +452,11 @@ rwkv6_mma_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __res
 }
 
 // Grid 2: the entering state of every segment, in place of the end states
-// grid 1 stored. A thread per (b, h, q, p), serial over the segments.
+// grid 1 stored (csrc/scan_pass.cuh); a state element [q][p] decays by its
+// key channel p.
 __global__ void rwkv6_pass_states(float* __restrict__ state, const float* __restrict__ decay,
                                   int BH, int P, int nseg) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long PP = (long long)P * P;
-  if (idx >= BH * PP) return;
-  const long long bh = idx / PP, e = idx - bh * PP;
-  const int p = (int)(e % P);
-  float s = 0.f;
-  for (int sg = 0; sg < nseg; ++sg) {
-    float* at = state + (bh * nseg + sg) * PP + e;
-    const float end = sg + 1 < nseg ? *at : 0.f;
-    *at = s;
-    if (sg + 1 < nseg) s = expf(decay[(bh * nseg + sg) * P + p]) * s + end;
-  }
+  scan_pass_states(state, decay, BH, P * P, P, nseg);
 }
 
 template <int P, int NCOL>

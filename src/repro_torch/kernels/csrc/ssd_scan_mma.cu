@@ -15,6 +15,12 @@
 //   H     = exp(cum_Q) H + (B o w)^T x,  w_j = exp(cum_Q - cum_j) dt_j
 // exp(cum_i - cum_j) is taken only where j <= i: above the diagonal it may be
 // +inf, and 0 * inf would be NaN (the mask is a select, never a product).
+// A chunk of q rows runs in the tile instance of Q >= q rows (16, 32, 64 or
+// 128; the wrapper picks the smallest): rows q..Q-1 of every tile stay zero
+// (x = B = C = 0 and dt = 0), so their log-decay is 0, cum past row q-1 and
+// the state's decay exp(cum at row q-1) are unchanged, they add nothing to
+// the state, and their y is never stored. Chunk boundaries stay at multiples
+// of q, where the reference puts them.
 //
 // Layout: x (B, H, S, P), B and C (B, S, N) and y in bf16, dt (B, H, S) and
 // A (H,) in f32; every operand is read through the strides the launcher is
@@ -153,13 +159,14 @@ __device__ __forceinline__ void split(float a, float b, uint32_t& hi, uint32_t& 
   lo = pack(a - h.x, b - h.y);
 }
 
-// Issue the loads of one chunk (rows c0..c0+Q) into a stage: 16-byte
+// Issue the loads of one chunk (rows c0..c0+q-1) into a stage: 16-byte
 // cp.async where every row is 16-byte aligned (vec), else plain loads and
-// stores; dt 4 bytes at a time. Columns N..63 of C and B stay zero.
+// stores; dt 4 bytes at a time. Columns N..63 of C and B and rows q..Q-1 of
+// every tile are never written, so they stay zero.
 template <int Q, int PB>
 __device__ __forceinline__ void load_chunk(unsigned char* stage, const __nv_bfloat16* Cb,
                                            const __nv_bfloat16* Bb, const __nv_bfloat16* xb,
-                                           const float* dtb, long long c0, int N,
+                                           const float* dtb, long long c0, int q, int N,
                                            const Strides& st, bool vec) {
   using L = Smem<Q, PB>;
   __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(stage + L::C_OFF);
@@ -169,28 +176,28 @@ __device__ __forceinline__ void load_chunk(unsigned char* stage, const __nv_bflo
   const int tid = threadIdx.x;
   if (vec) {
     const int gpr = N / 8;  // 16-byte granules a row of C or B
-    for (int i = tid; i < Q * gpr; i += THREADS) {
+    for (int i = tid; i < q * gpr; i += THREADS) {
       const int r = i / gpr, g = 8 * (i - r * gpr);
       cp_async16(cs + r * NSTR + g, Cb + (c0 + r) * st.c_s + g);
       cp_async16(bs + r * NSTR + g, Bb + (c0 + r) * st.b_s + g);
     }
     constexpr int XG = PB / 8;
-    for (int i = tid; i < Q * XG; i += THREADS) {
+    for (int i = tid; i < q * XG; i += THREADS) {
       const int r = i / XG, g = 8 * (i - r * XG);
       cp_async16(xs + r * L::XSTR + g, xb + (c0 + r) * st.x_s + g);
     }
   } else {
-    for (int i = tid; i < Q * N; i += THREADS) {
+    for (int i = tid; i < q * N; i += THREADS) {
       const int r = i / N, n = i - r * N;
       cs[r * NSTR + n] = Cb[(c0 + r) * st.c_s + n];
       bs[r * NSTR + n] = Bb[(c0 + r) * st.b_s + n];
     }
-    for (int i = tid; i < Q * PB; i += THREADS) {
+    for (int i = tid; i < q * PB; i += THREADS) {
       const int r = i / PB, p = i - r * PB;
       xs[r * L::XSTR + p] = xb[(c0 + r) * st.x_s + p];
     }
   }
-  for (int i = tid; i < Q; i += THREADS) cp_async4(dts + i, dtb + (c0 + i) * st.dt_s);
+  for (int i = tid; i < q; i += THREADS) cp_async4(dts + i, dtb + (c0 + i) * st.dt_s);
   cp_async_commit();
 }
 
@@ -199,7 +206,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ A, const __nv_bfloat16* __restrict__ Bm,
                     const __nv_bfloat16* __restrict__ Cm, __nv_bfloat16* __restrict__ y, int S,
-                    int N, Strides st, int vec) {
+                    int q, int N, Strides st, int vec) {
   static_assert(Q % 16 == 0 && PB % 16 == 0 && PB <= 64, "Q, PB multiples of 16; PB <= 64");
   using L = Smem<Q, PB>;
   constexpr int RT = Q / 16;                  // row tiles of a chunk
@@ -229,8 +236,8 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
   for (int i = tid; i < L::BYTES / 16; i += THREADS)
     reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
-  const int nchunks = S / Q;
-  load_chunk<Q, PB>(smem, Cb, Bb, xb, dtb, 0, N, st, vec);
+  const int nchunks = S / q;
+  load_chunk<Q, PB>(smem, Cb, Bb, xb, dtb, 0, q, N, st, vec);
 
   // this warp's state rows 16*warp.. (all PB columns), f32, across chunks
   const bool owns_state = 16 * warp < N;
@@ -256,8 +263,8 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
     // of the other stage and the other copy is done
     __syncthreads();
     if (c + 1 < nchunks)
-      load_chunk<Q, PB>(smem + ((c + 1) & 1) * L::STAGE, Cb, Bb, xb, dtb, (long long)(c + 1) * Q,
-                        N, st, vec);
+      load_chunk<Q, PB>(smem + ((c + 1) & 1) * L::STAGE, Cb, Bb, xb, dtb, (long long)(c + 1) * q,
+                        q, N, st, vec);
 
     // base-2 inclusive cumsum of dt * A, and w, by this warp for itself
     float carry = 0.f;
@@ -385,11 +392,12 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
           }
         }
 #pragma unroll
-        for (int nt = 0; nt < NTW; ++nt) {
+        for (int nt = 0; nt < NTW; ++nt) {  // the chunk's rows only, never the padding
           const int p = pc + 8 * nt + 2 * tq;
-          __nv_bfloat16* out = yb + (long long)(c * Q + i0) * st.y_s + p;
-          *reinterpret_cast<uint32_t*>(out) = pack(acc[nt][0], acc[nt][1]);
-          *reinterpret_cast<uint32_t*>(out + 8 * st.y_s) = pack(acc[nt][2], acc[nt][3]);
+          __nv_bfloat16* out = yb + ((long long)c * q + i0) * st.y_s + p;
+          if (i0 < q) *reinterpret_cast<uint32_t*>(out) = pack(acc[nt][0], acc[nt][1]);
+          if (i0 + 8 < q)
+            *reinterpret_cast<uint32_t*>(out + 8 * st.y_s) = pack(acc[nt][2], acc[nt][3]);
         }
       }
     }
@@ -444,7 +452,7 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
 
 template <int Q, int PB>
 int launch(const void* x, const float* dt, const float* A, const void* Bm, const void* Cm,
-           void* y, int B, int H, int S, int P, int N, const Strides& st, int vec,
+           void* y, int B, int H, int S, int P, int N, int q, const Strides& st, int vec,
            cudaStream_t stream) {
   using L = Smem<Q, PB>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -453,19 +461,19 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm, const
   const dim3 grid(P / PB, H, B);
   ssd_scan_mma_kernel<Q, PB><<<grid, THREADS, L::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(x), dt, A, static_cast<const __nv_bfloat16*>(Bm),
-      static_cast<const __nv_bfloat16*>(Cm), static_cast<__nv_bfloat16*>(y), S, N, st, vec);
+      static_cast<const __nv_bfloat16*>(Cm), static_cast<__nv_bfloat16*>(y), S, q, N, st, vec);
   return (int)cudaGetLastError();
 }
 
 template <int PB>
-int dispatch_q(int Q, const void* x, const float* dt, const float* A, const void* Bm,
-               const void* Cm, void* y, int B, int H, int S, int P, int N, const Strides& st,
-               int vec, cudaStream_t s) {
-  switch (Q) {
-    case 16: return launch<16, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, st, vec, s);
-    case 32: return launch<32, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, st, vec, s);
-    case 64: return launch<64, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, st, vec, s);
-    case 128: return launch<128, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, st, vec, s);
+int dispatch_q(int tile, const void* x, const float* dt, const float* A, const void* Bm,
+               const void* Cm, void* y, int B, int H, int S, int P, int N, int q,
+               const Strides& st, int vec, cudaStream_t s) {
+  switch (tile) {
+    case 16: return launch<16, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, q, st, vec, s);
+    case 32: return launch<32, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, q, st, vec, s);
+    case 64: return launch<64, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, q, st, vec, s);
+    case 128: return launch<128, PB>(x, dt, A, Bm, Cm, y, B, H, S, P, N, q, st, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -477,14 +485,17 @@ int dispatch_q(int Q, const void* x, const float* dt, const float* A, const void
 // (112 blocks, under one an SM) and 16.
 
 // strides: x (b, h, s), dt (b, h, s), B (b, s), C (b, s), y (b, h, s), in
-// elements; every last axis is dense. vec says that x, B and C rows are
-// 16-byte aligned (cp.async by 16 bytes) and N a multiple of 8. Returns the
-// launch's cudaGetLastError() code (0 on success). Does not synchronise.
+// elements; every last axis is dense. Q: the chunk, any length dividing S;
+// tile: the instance it runs in (16, 32, 64 or 128, at least Q; the caller
+// picks the smallest). vec says that x, B and C rows are 16-byte aligned
+// (cp.async by 16 bytes) and N a multiple of 8. Returns the launch's
+// cudaGetLastError() code (0 on success). Does not synchronise.
 extern "C" int ssd_scan_mma_launch(const void* x, const void* dt, const void* A, const void* Bm,
                                    const void* Cm, void* y, int B, int H, int S, int P, int N,
-                                   int Q, const long long* strides, int vec, void* stream) {
+                                   int Q, int tile, const long long* strides, int vec,
+                                   void* stream) {
   if (B < 1 || H < 1 || S < 1 || N < 1 || N > NS || P < 16 || P % 16 != 0 || Q < 1 ||
-      S % Q != 0 || (vec && N % 8 != 0) || strides[12] % 2 != 0)
+      Q > tile || S % Q != 0 || (vec && N % 8 != 0) || strides[12] % 2 != 0)
     return (int)cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],
                    strides[5], strides[6], strides[7], strides[8], strides[9],
@@ -492,6 +503,7 @@ extern "C" int ssd_scan_mma_launch(const void* x, const void* dt, const void* A,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
-  if (P % 32 == 0) return dispatch_q<32>(Q, x, dtf, Af, Bm, Cm, y, B, H, S, P, N, st, vec, s);
-  return dispatch_q<16>(Q, x, dtf, Af, Bm, Cm, y, B, H, S, P, N, st, vec, s);
+  if (P % 32 == 0)
+    return dispatch_q<32>(tile, x, dtf, Af, Bm, Cm, y, B, H, S, P, N, Q, st, vec, s);
+  return dispatch_q<16>(tile, x, dtf, Af, Bm, Cm, y, B, H, S, P, N, Q, st, vec, s);
 }

@@ -20,8 +20,10 @@ take:
   hi + lo pairs, the state f32 in registers), a warp per (b, h, segment of
   the sequence, value columns), the segments' states passed along between
   grids (:func:`segment_chunks` plans the segments);
-* f32 -> ``csrc/rwkv6_scan.cu`` (:func:`rwkv6_scan_f32`): exact f32 on the
-  CUDA cores.
+* f32 -> ``csrc/rwkv6_scan.cu`` (:func:`rwkv6_scan_f32`): the same
+  decomposition (a warp per (b, h, segment, value columns), the state in
+  registers, the same segment plan) with exact f32 FMAs on the CUDA cores;
+  a head's warps form one block and share the chunk's loads and decays.
 
 Each launcher counts its own launches, one a call however many grids it
 runs (``rwkv6_scan_mma.launches``, ``rwkv6_scan_f32.launches``), and
@@ -48,7 +50,7 @@ __all__ = [
 MAX_CHUNK = 16  # exp(-cw) stays finite in f32 only up to Q=16
 MAX_HEAD = 64  # P: the kernels' tiles are sized for P <= 64
 DTYPES = (torch.bfloat16, torch.float32)
-# warps the bf16 kernel aims to run at once: the sequence is cut into as many
+# warps each kernel aims to run at once: the sequence is cut into as many
 # segments as it takes (B * H * P / value_cols(P) warps a segment), each at
 # least MIN_SEGMENT_CHUNKS chunks long
 TARGET_WARPS = 2048
@@ -113,13 +115,13 @@ def rwkv6_scan_plain(r, k, v, logw, u, *, chunk: int = MAX_CHUNK) -> torch.Tenso
 
 
 def value_cols(P: int) -> int:
-    """Value columns a warp of the bf16 kernel takes: 32 where they divide P,
+    """Value columns a warp of either kernel takes: 32 where they divide P,
     else 16 (32 ran faster than 16 and 64 at rwkv6-3b's P = 64; PERF.md)."""
     return 32 if P % 32 == 0 else 16
 
 
 def segment_chunks(B: int, H: int, S: int, P: int, Q: int) -> int:
-    """Chunks of one segment of the bf16 kernel's sequence split: enough
+    """Chunks of one segment of either kernel's sequence split: enough
     segments for about :data:`TARGET_WARPS` warps (a warp per (b, h, segment,
     :func:`value_cols` value columns)), none shorter than
     :data:`MIN_SEGMENT_CHUNKS` chunks. A sequence of one segment runs a
@@ -134,13 +136,12 @@ def _strides(r, k, v, logw, y):
     return (ctypes.c_longlong * 15)(*(s for t in (r, k, v, logw, y) for s in t.stride()[:3]))
 
 
-def rwkv6_scan_mma(r, k, v, logw, u, y, Q: int) -> None:
-    """Launch ``csrc/rwkv6_scan_mma.cu`` on checked bf16 CUDA tensors,
-    writing ``y``; counts one launch a call. A sequence of more than one
-    segment (:func:`segment_chunks`) runs three grids: the segments' end
-    states into a workspace, the states passed along, then y. Rows that are
-    16-byte aligned load by 16-byte ``cp.async``; any other strided view
-    loads element by element."""
+def _launch(name: str, r, k, v, logw, u, y, Q: int) -> None:
+    """Launch ``csrc/<name>.cu`` on checked CUDA tensors, writing ``y``. A
+    sequence of more than one segment (:func:`segment_chunks`) runs three
+    grids: the segments' end states into a workspace, the states passed
+    along, then y. Rows that are 16-byte aligned load by 16-byte
+    ``cp.async``; any other strided view loads element by element."""
     B, H, S, P = r.shape
     seg = segment_chunks(B, H, S, P, Q)
     nseg = -(-(S // Q) // seg)
@@ -149,7 +150,7 @@ def rwkv6_scan_mma(r, k, v, logw, u, y, Q: int) -> None:
         state = torch.empty((B, H, nseg, P, P), dtype=torch.float32, device=r.device)
         decay = torch.empty((B, H, nseg, P), dtype=torch.float32, device=r.device)
     vec = all(rows_16b(t, 3) for t in (r, k, v, logw))
-    fn = _build.launcher("rwkv6_scan_mma", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+    fn = _build.launcher(name, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(r.device):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
@@ -158,22 +159,20 @@ def rwkv6_scan_mma(r, k, v, logw, u, y, Q: int) -> None:
                  _strides(r, k, v, logw, y), int(vec),
                  torch.cuda.current_stream(r.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"rwkv6_scan_mma launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def rwkv6_scan_mma(r, k, v, logw, u, y, Q: int) -> None:
+    """Launch ``csrc/rwkv6_scan_mma.cu`` on checked bf16 CUDA tensors,
+    writing ``y``; counts one launch a call, however many grids it runs."""
+    _launch("rwkv6_scan_mma", r, k, v, logw, u, y, Q)
     rwkv6_scan_mma.launches += 1
 
 
 def rwkv6_scan_f32(r, k, v, logw, u, y, Q: int) -> None:
     """Launch ``csrc/rwkv6_scan.cu`` on checked f32 CUDA tensors, writing
-    ``y``; counts its launches."""
-    B, H, S, P = r.shape
-    fn = _build.launcher("rwkv6_scan", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
-    with torch.cuda.device(r.device):
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
-                 y.data_ptr(), B, H, S, P, Q, _strides(r, k, v, logw, y),
-                 torch.cuda.current_stream(r.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rwkv6_scan launch failed: CUDA error {err}")
+    ``y``; counts one launch a call, however many grids it runs."""
+    _launch("rwkv6_scan", r, k, v, logw, u, y, Q)
     rwkv6_scan_f32.launches += 1
 
 

@@ -15,7 +15,15 @@ kernels do not take:
 * bf16 -> ``csrc/ssd_scan_mma.cu``: the four products of a chunk on the
   tensor cores (``mma.sync``, f32 accumulators, the state f32 across
   chunks), the next chunk's loads by ``cp.async`` behind the current one;
-* f32 -> ``csrc/ssd_scan.cu``: exact f32 on the CUDA cores.
+* f32 -> ``csrc/ssd_scan.cu``: exact f32 FMAs on the CUDA cores in SGEMM
+  register tiles; ``C B^T`` once per (b, chunk) by a grid of its own, and a
+  block per (b, h, segment of the sequence, :func:`block_cols` value
+  columns), the segments' states passed along between grids
+  (:func:`segment_chunks` plans the segments).
+
+Both take any chunk length ``1 <= Q <= 128`` that divides S, as the JAX twin
+does: a chunk runs in the kernel's tile instance of the smallest of
+:data:`CHUNKS` rows at least Q (:func:`chunk_tile`), its padding rows zero.
 
 Each launcher counts its own launches (``ssd_scan_mma.launches``,
 ``ssd_scan_f32.launches``), and ``ssd_scan_hsd.launches`` counts both. The
@@ -34,13 +42,19 @@ import torch
 from . import _build
 
 __all__ = [
-    "CHUNKS", "empty_in_layout", "ssd_chunked", "ssd_scan_f32",
-    "ssd_scan_hsd", "ssd_scan_mma", "ssd_scan_plain",
+    "CHUNKS", "block_cols", "chunk_tile", "empty_in_layout", "segment_chunks", "ssd_chunked",
+    "ssd_scan_f32", "ssd_scan_hsd", "ssd_scan_mma", "ssd_scan_plain",
 ]
 
-CHUNKS = (16, 32, 64, 128)  # the kernels' chunk lengths (template instances)
-MAX_STATE = 64  # N: the f32 update keeps up to 4 rows of 16 a thread; the mma one pads to 64
+CHUNKS = (16, 32, 64, 128)  # the kernels' tile instances, in rows
+MAX_STATE = 64  # N: both kernels pad the state's rows to 64
 DTYPES = (torch.bfloat16, torch.float32)
+# blocks the f32 kernel aims to run at once: one an SM of the H100's 132 (its
+# y pass takes 175 KB of shared memory at chunk 64). The sequence is cut into
+# as many segments as fit (B * H * P / block_cols(P) blocks a segment), each
+# at least MIN_SEGMENT_CHUNKS chunks long.
+TARGET_BLOCKS = 132
+MIN_SEGMENT_CHUNKS = 16
 
 
 @torch.no_grad()
@@ -113,6 +127,33 @@ def empty_in_layout(x: torch.Tensor) -> torch.Tensor:
     return out.permute(*sorted(range(x.dim()), key=order.__getitem__))
 
 
+def chunk_tile(Q: int) -> int:
+    """The tile instance a chunk of ``Q`` rows runs in: the smallest of
+    :data:`CHUNKS` at least ``Q``."""
+    for tile in CHUNKS:
+        if Q <= tile:
+            return tile
+    raise ValueError(f"chunk {Q}: the kernels take chunks of at most {CHUNKS[-1]}")
+
+
+def block_cols(P: int) -> int:
+    """Value columns a block of the f32 kernel takes: the whole of 64 where
+    they divide P, else 16."""
+    return 64 if P % 64 == 0 else 16
+
+
+def segment_chunks(B: int, H: int, S: int, P: int, Q: int) -> int:
+    """Chunks of one segment of the f32 kernel's sequence split: as many
+    segments as :data:`TARGET_BLOCKS` blocks hold (a block per (b, h,
+    segment, :func:`block_cols` value columns)), none shorter than
+    :data:`MIN_SEGMENT_CHUNKS` chunks. A sequence of one segment runs the y
+    grid alone."""
+    nchunks = S // Q
+    per_segment = B * H * (P // block_cols(P))
+    nseg = max(1, min(TARGET_BLOCKS // per_segment, nchunks // MIN_SEGMENT_CHUNKS))
+    return -(-nchunks // nseg)
+
+
 def check_operand(
     name: str, t: torch.Tensor, device, dtype, shape: tuple, *, dense_last: bool = True
 ) -> None:
@@ -144,18 +185,19 @@ def rows_16b(t: torch.Tensor, n_strided: int) -> bool:
 
 def ssd_scan_mma(x, dt, A, Bm, Cm, y, Q: int) -> None:
     """Launch ``csrc/ssd_scan_mma.cu`` on checked bf16 CUDA tensors, writing
-    ``y``; counts its launches. Rows of x, B and C that are 16-byte aligned,
-    with N a multiple of 8, load by 16-byte ``cp.async``; any other strided
-    view loads element by element."""
+    ``y``, with a chunk of ``Q`` rows in its :func:`chunk_tile` instance;
+    counts its launches. Rows of x, B and C that are 16-byte aligned, with N
+    a multiple of 8, load by 16-byte ``cp.async``; any other strided view
+    loads element by element."""
     B, H, S, P = x.shape
     N = Bm.shape[-1]
     vec = N % 8 == 0 and rows_16b(x, 3) and rows_16b(Bm, 2) and rows_16b(Cm, 2)
-    fn = _build.launcher("ssd_scan_mma", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    fn = _build.launcher("ssd_scan_mma", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                 y.data_ptr(), B, H, S, P, N, Q, _strides(x, dt, Bm, Cm, y), int(vec),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+                 y.data_ptr(), B, H, S, P, N, Q, chunk_tile(Q), _strides(x, dt, Bm, Cm, y),
+                 int(vec), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_mma launch failed: CUDA error {err}")
     ssd_scan_mma.launches += 1
@@ -163,14 +205,31 @@ def ssd_scan_mma(x, dt, A, Bm, Cm, y, Q: int) -> None:
 
 def ssd_scan_f32(x, dt, A, Bm, Cm, y, Q: int) -> None:
     """Launch ``csrc/ssd_scan.cu`` on checked f32 CUDA tensors, writing
-    ``y``; counts its launches."""
+    ``y``, with a chunk of ``Q`` rows in its :func:`chunk_tile` instance;
+    counts one launch a call. The call runs ``C B^T`` of every (b, chunk)
+    into a workspace, then y; a sequence of more than one segment
+    (:func:`segment_chunks`) runs the segments' end states and their passing
+    in between. Rows of x, B and C that are 16-byte aligned, with N a
+    multiple of 4, load by 16-byte ``cp.async``; any other strided view loads
+    element by element."""
     B, H, S, P = x.shape
     N = Bm.shape[-1]
-    fn = _build.launcher("ssd_scan", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    nchunks = S // Q
+    seg = segment_chunks(B, H, S, P, Q)
+    nseg = -(-nchunks // seg)
+    gram = torch.empty((B, nchunks, Q, -(-Q // 4) * 4), dtype=torch.float32, device=x.device)
+    state = decay = None
+    if nseg > 1:
+        state = torch.empty((B, H, nseg, N, P), dtype=torch.float32, device=x.device)
+        decay = torch.empty((B, H, nseg), dtype=torch.float32, device=x.device)
+    vec = N % 4 == 0 and rows_16b(x, 3) and rows_16b(Bm, 2) and rows_16b(Cm, 2)
+    fn = _build.launcher("ssd_scan", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                 y.data_ptr(), B, H, S, P, N, Q, _strides(x, dt, Bm, Cm, y),
+                 y.data_ptr(), gram.data_ptr(), None if state is None else state.data_ptr(),
+                 None if decay is None else decay.data_ptr(), B, H, S, P, N, Q, chunk_tile(Q),
+                 block_cols(P), seg, _strides(x, dt, Bm, Cm, y), int(vec),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
@@ -189,8 +248,8 @@ def ssd_scan_hsd(
 ) -> torch.Tensor:
     """The SSD scan, heads-major; ``y (B, H, S, P)`` in x's dtype. A CUDA
     ``x`` launches the bf16 or the f32 kernel with chunk length
-    ``min(chunk, S)``, which must be one of :data:`CHUNKS` and divide S; a
-    CPU one runs the plain version."""
+    ``min(chunk, S)``, any length up to 128 that divides S (the JAX twin's
+    contract: S % Q raises there too); a CPU one runs the plain version."""
     if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 3:
         raise ValueError(f"x, dt and B must be 4-, 3- and 3-D, got {x.dim()}, {dt.dim()}, "
                          f"{Bm.dim()}")
@@ -208,8 +267,9 @@ def ssd_scan_hsd(
     check_operand("A", A, x.device, torch.float32, (H,))
     check_operand("B", Bm, x.device, x.dtype, (B, S, N))
     check_operand("C", Cm, x.device, x.dtype, (B, S, N))
-    if Q not in CHUNKS or S % Q:
-        raise ValueError(f"chunk {Q} for seq {S}: the kernel takes chunks {CHUNKS} dividing S")
+    if not 1 <= Q <= CHUNKS[-1] or S % Q:
+        raise ValueError(f"chunk {Q} for seq {S}: the kernels take chunks of 1 to {CHUNKS[-1]} "
+                         "that divide S")
     if not 1 <= N <= MAX_STATE or P % 16:
         raise ValueError(f"N={N}, P={P}: the kernel takes N <= {MAX_STATE} and P a multiple of 16")
     y = empty_in_layout(x)

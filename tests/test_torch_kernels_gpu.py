@@ -490,6 +490,77 @@ def test_ssd_mma_kernel_unaligned_rows(N):
         assert ref.row_limit_ratio(aligned, want, *SCAN_TOL[torch.bfloat16]) <= 1.0
 
 
+# chunks the model passes for prompts under 64 tokens, which have no tile
+# instance of their own: (B, S, H, P, N, chunk)
+SSD_ODD_CASES = [(2, 96, 3, 64, 16, 48), (1, 37, 2, 64, 64, 37), (2, 64, 2, 32, 16, 8),
+                 (1, 120, 2, 16, 8, 24)]
+
+
+@pytest.mark.parametrize("case", SSD_ODD_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_kernels_take_odd_chunks(case, dtype):
+    """Both SSD kernels run a chunk of 48, 37, 24 or 8 rows in the smallest
+    tile instance that holds it, its padding rows zero: against the chunked
+    plain version and the sequential oracle, one launch of the dtype's
+    kernel."""
+    _need_card()
+    chunk = case[-1]
+    args = _ssd_args(case, dtype, seed=chunk)
+    kernel = ssd.ssd_scan_mma if dtype == torch.bfloat16 else ssd.ssd_scan_f32
+    before = kernel.launches
+    got = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    want, _ = ssd.ssd_chunked(*args, chunk=chunk)
+    assert ref.row_limit_ratio(got, want, *SCAN_TOL[dtype]) <= 1.0
+    seq, _ = ref.ssd_sequential(*args)
+    assert ref.row_limit_ratio(got, seq, *SCAN_TOL[dtype]) <= 1.0
+
+
+# (family, case, segments): one segment, segments of two chunks, and a shape
+# whose own plan cuts the sequence (zamba2-7b's and rwkv6-3b's heads keep one
+# segment at S=4096)
+F32_SEGMENT_CASES = [
+    ("ssd", (1, 512, 2, 64, 64, 64), 1), ("ssd", (1, 512, 2, 64, 64, 64), 2),
+    ("ssd", (2, 384, 3, 32, 16, 48), 2), ("ssd", (1, 2048, 2, 64, 64, 64), None),
+    ("rwkv", (1, 256, 2, 64, 16), 1), ("rwkv", (2, 128, 3, 48, 16), 2),
+    ("rwkv", (1, 160, 2, 64, 5), 2), ("rwkv", (1, 1024, 2, 64, 16), None),
+]
+
+
+@pytest.mark.parametrize("family, case, segments", F32_SEGMENT_CASES)
+def test_f32_scan_kernels_across_segments(monkeypatch, family, case, segments):
+    """The f32 SSD and RWKV-6 kernels with the sequence in one segment, in
+    segments of two chunks (end states, passing, y), and at a shape whose own
+    plan makes several: against the chunked plain version and the sequential
+    oracle at f32 tolerance."""
+    _need_card()
+    chunk = case[-1]
+    module = ssd if family == "ssd" else rw
+    nchunks = case[1] // chunk
+    if segments is not None:
+        seg_len = nchunks if segments == 1 else 2
+        monkeypatch.setattr(module, "segment_chunks", lambda *a: seg_len)
+    else:
+        B, S, H, P = case[:4]
+        assert module.segment_chunks(B, H, S, P, chunk) < nchunks  # the plan cuts it
+    if family == "ssd":
+        args = _ssd_args(case, torch.float32, seed=len(case))
+        got = ops.ssd_scan(*args, chunk=chunk)
+        want, _ = ssd.ssd_chunked(*args, chunk=chunk)
+        seq, _ = ref.ssd_sequential(*args)
+    else:
+        args = _rwkv_args(case, torch.float32, seed=len(case))
+        got = ops.rwkv6_scan(*args, chunk=chunk)
+        want, _ = rw.rwkv6_chunked(*args, chunk=chunk)
+        seq, _ = ref.rwkv6_sequential(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    assert ref.row_limit_ratio(got, want, *SCAN_TOL[torch.float32]) <= 1.0
+    assert ref.row_limit_ratio(got, seq, *SCAN_TOL[torch.float32]) <= 1.0
+
+
 def test_ssd_routes_by_dtype():
     """bf16 launches the tensor-core kernel, f32 the CUDA-core one; the
     routing wrapper counts both."""
@@ -635,9 +706,12 @@ def test_scan_wrappers_reject_bad_inputs():
     ]:
         with pytest.raises(err):
             ssd.ssd_scan_hsd(*bad, chunk=32)
-    for chunk in (8, 48):  # not a kernel chunk; 48 does not divide S
+    for chunk in (48, 40):  # neither divides S=128, which the JAX twin refuses too
         with pytest.raises(ValueError, match="chunk"):
             ssd.ssd_scan_hsd(*hsd, chunk=chunk)
+    long = _ssd_args((1, 512, 2, 32, 16, 256), torch.bfloat16)
+    with pytest.raises(ValueError, match="chunk"):  # above the largest tile instance
+        ssd.ssd_scan_hsd(long[0].transpose(1, 2), long[1].transpose(1, 2), *long[2:], chunk=256)
     with pytest.raises(ValueError):  # a non-dense last axis
         ssd.ssd_scan_hsd(hsd[0].transpose(2, 3).contiguous().transpose(2, 3), *hsd[1:], chunk=32)
 

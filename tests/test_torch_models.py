@@ -18,6 +18,7 @@ import repro_torch.configs as tconfigs
 import repro_torch.models as tm
 from repro.configs import shapes as jshapes
 from repro_torch.configs import shapes as tshapes
+from repro_torch.kernels import ops as tops
 from repro_torch.models import transformer
 from repro_torch.models.convert import params_from_jax
 
@@ -102,6 +103,30 @@ def test_forward_and_prefill_match_jax(arch, dtype, monkeypatch):
     got_last, _ = tm.prefill(tp, tc, torch.from_numpy(tok).long())
     assert tuple(got_last.shape) == (B, 1, tc.vocab)
     np.testing.assert_allclose(got_last.numpy(), np.asarray(want_last), **tolerance)
+
+
+@pytest.mark.parametrize("seq", [37, 48])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zamba2_short_prompt_forward_matches_jax(seq, dtype, monkeypatch):
+    """A prompt shorter than 64 tokens whose length is no tile instance: both
+    packages pass the SSD scan the chunk min(64, pick_chunk(S)) = S (37 or
+    48), which the port's kernels take too; the logits agree at the
+    tolerances of test_forward_and_prefill_match_jax."""
+    jc, tc, jp, tp = _pair("zamba2-7b-smoke", dtype)
+    tok = _tokens(jc, seed=2, shape=(1, seq))
+    want = np.asarray(jm.forward(jp, jc, jnp.asarray(tok))[0])
+    tolerance = f32_tol(jp, jc, tok, want, monkeypatch) if dtype == "float32" else bf16_tol(want)
+    chunks = []
+    scan = tops.ssd_scan
+
+    def spy(*args, chunk):
+        chunks.append(chunk)
+        return scan(*args, chunk=chunk)
+
+    monkeypatch.setattr(tops, "ssd_scan", spy)
+    got, _ = tm.forward(tp, tc, torch.from_numpy(tok).long())
+    assert chunks and set(chunks) == {seq}
+    np.testing.assert_allclose(got.numpy(), want, **tolerance)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

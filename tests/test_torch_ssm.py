@@ -3,10 +3,13 @@
 made with numpy from a seed and handed to both packages bit for bit. The scan
 wrappers run their chunked plain versions here; they are held to the JAX
 package's Pallas kernels in interpret mode and to the sequential oracles at
-``tests/test_kernels.py``'s cases and tolerances. The bf16 RWKV-6 kernel's
-arithmetic (its bf16 hi + lo rounding points and its sequence split) is
-emulated here and held to the same references and to the JAX model's logits.
-The mixers run from the same parameters (the JAX init carried over)."""
+``tests/test_kernels.py``'s cases and tolerances, and at the odd chunk lengths
+the model passes for short prompts. The kernels' decompositions are emulated
+here and held to the same references: the bf16 RWKV-6 kernel's (its bf16
+hi + lo rounding points and its sequence split, also against the JAX model's
+logits), and the f32 SSD and RWKV-6 kernels' (the SSD's C B^T once per
+(b, chunk), both sequence splits). The mixers run from the same parameters
+(the JAX init carried over)."""
 import dataclasses
 import sys
 
@@ -28,6 +31,7 @@ import repro_torch.models as tm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rwkv6 as trw
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd as tssd
 from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_scan_hsd
 from repro_torch.kernels.ssd import ssd_chunked, ssd_scan_hsd
 from repro_torch.models import ssm as tssm
@@ -35,6 +39,13 @@ from repro_torch.models.convert import tensor_from_numpy
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 F32 = dict(rtol=1e-4, atol=1e-4)
+# (B, S, H, P, N, chunk) at chunk lengths the model passes for prompts
+# shorter than 64 tokens (min(64, pick_chunk(S))): 48, 37 and 24, and 8
+SSD_ODD_CASES = [(2, 96, 3, 64, 16, 48), (1, 37, 2, 64, 64, 37), (2, 64, 2, 32, 16, 8),
+                 (1, 120, 2, 16, 8, 24)]
+# tests/test_kernels.py's f32 tolerance (rtol, atol as a share of each
+# output row's root mean square, kernels.ref.row_limit_ratio)
+F32_ROW = (2e-4, 5e-4)
 
 
 def _both(a: np.ndarray, dtype: str = "float32"):
@@ -77,7 +88,7 @@ def _rwkv_inputs(case, dtype, seed=0):
 # ---------------------------------------------------------------------------
 # the scans
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("case", SSD_CASES + SSD_ODD_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_plain_matches_pallas_and_sequential(case, dtype):
     chunk = case[-1]
@@ -187,6 +198,19 @@ def rwkv6_mma_emulation(r, k, v, logw, u, *, chunk=16, segment_chunks=None):
     f32; the sequence cut into segments of ``segment_chunks`` chunks (the
     port's plan when None), whose end states run from zero, are passed along
     (``exp`` of the summed log decay), and enter each segment's y."""
+    return _rwkv6_emulation(r, k, v, logw, u, chunk, segment_chunks, _mm_built, _mm_half)
+
+
+def rwkv6_f32_emulation(r, k, v, logw, u, *, chunk=16, segment_chunks=None):
+    """The f32 kernel's decomposition (``csrc/rwkv6_scan.cu``): the bf16
+    kernel's (the same zero padding, cumsums, factorization, segment plan and
+    state passing) with every product in f32."""
+    return _rwkv6_emulation(r, k, v, logw, u, chunk, segment_chunks, torch.matmul, torch.matmul)
+
+
+def _rwkv6_emulation(r, k, v, logw, u, chunk, segment_chunks, mm_built, mm_half):
+    """The RWKV-6 kernels' decomposition; ``mm_built`` multiplies two
+    operands built in f32, ``mm_half`` one built in f32 by v."""
     B, S, H, P = r.shape
     Q = min(chunk, S)
     nc = S // Q
@@ -203,10 +227,10 @@ def rwkv6_mma_emulation(r, k, v, logw, u, *, chunk=16, segment_chunks=None):
     qn, kn, kd = rc * torch.exp(cwp), kc * torch.exp(-cw), kc * torch.exp(end - cw)
     bonus = (rc * u.to(f32)[None, :, None, None, :] * kc).sum(-1)
     i = torch.arange(16)
-    A = torch.where(i[None, :] < i[:, None], _mm_built(qn, kn.transpose(-1, -2)), 0.0)
+    A = torch.where(i[None, :] < i[:, None], mm_built(qn, kn.transpose(-1, -2)), 0.0)
     A = A + torch.diag_embed(bonus)
-    y_intra = _mm_half(A, vc)
-    kdv = _mm_half(kd.transpose(-1, -2), vc)  # (B, H, nc, P, P): S[p][q]
+    y_intra = mm_half(A, vc)
+    kdv = mm_half(kd.transpose(-1, -2), vc)  # (B, H, nc, P, P): S[p][q]
     dec = torch.exp(end[..., 0, :])[..., None]  # (B, H, nc, P, 1)
     seg = segment_chunks or trw.segment_chunks(B, H, S, P, Q)
     bounds = [(c, min(c + seg, nc)) for c in range(0, nc, seg)]
@@ -221,7 +245,7 @@ def rwkv6_mma_emulation(r, k, v, logw, u, *, chunk=16, segment_chunks=None):
     ys = []
     for (c0, c1), s_in in zip(bounds, entering):  # y from each segment's entering state
         for c in range(c0, c1):
-            ys.append(y_intra[:, :, c] + _mm_built(qn[:, :, c], s_in))
+            ys.append(y_intra[:, :, c] + mm_built(qn[:, :, c], s_in))
             s_in = s_in * dec[:, :, c] + kdv[:, :, c]
     y = torch.stack(ys, 2)[..., :Q, :].reshape(B, H, S, P)
     return y.transpose(1, 2).to(r.dtype)
@@ -288,6 +312,118 @@ def test_rwkv6_segment_plan_counts_the_kernels_warps(P):
     warps = B * H * (P // cols) * nseg
     assert warps >= trw.TARGET_WARPS > B * H * (P // cols) * (nseg - 1)
     assert trw.segment_chunks(B, H, 256, P, Q) == 256 // Q  # one segment: a single grid
+
+
+def ssd_f32_emulation(x, dt, A, Bm, Cm, *, chunk=64, segment_chunks=None):
+    """The f32 SSD kernel's decomposition (``csrc/ssd_scan.cu``) in the model
+    layout ``(B, S, H, P)``, all in f32: G = C B^T once per (b, chunk), shared
+    by the heads (its first grid); per head W = mask(G exp(cum_i - cum_j)
+    dt_j) and B o w with w_j = exp(cum_q - cum_j) dt_j; the sequence cut into
+    segments of ``segment_chunks`` chunks (the port's plan when None), whose
+    end states run from zero, are passed along (``exp`` of the summed log
+    decay), and enter each segment's y = exp(cum) (C S) + W x."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = S // Q
+    f32 = torch.float32
+    xc = x.to(f32).reshape(B, nc, Q, H, P)
+    dtc = dt.to(f32).reshape(B, nc, Q, H)
+    Bc, Cc = (m.to(f32).reshape(B, nc, Q, N) for m in (Bm, Cm))
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # once per (b, chunk)
+    cum = torch.cumsum(dtc * A.to(f32), dim=2)  # (B, nc, Q, H)
+    ctot = cum[:, :, -1]  # (B, nc, H)
+    i = torch.arange(Q)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # cum_i - cum_j
+    W = torch.where((i[None, :] <= i[:, None])[None, None, :, :, None],
+                    G[..., None] * torch.exp(diff) * dtc[:, :, None, :, :], 0.0)
+    w = torch.exp(ctot[:, :, None, :] - cum) * dtc  # (B, nc, Q, H)
+    Bw = Bc[:, :, :, None, :] * w[..., None]  # (B, nc, Q, H, N)
+    right = torch.einsum("bcjhn,bcjhp->bchnp", Bw, xc)
+    dec = torch.exp(ctot)[..., None, None]  # (B, nc, H, 1, 1)
+    seg = segment_chunks or tssd.segment_chunks(B, H, S, P, Q)
+    bounds = [(c, min(c + seg, nc)) for c in range(0, nc, seg)]
+    state, entering = torch.zeros((B, H, N, P)), []
+    for c0, c1 in bounds:  # the segments' end states from zero, passed along
+        entering.append(state)
+        s_end, ld = torch.zeros((B, H, N, P)), torch.zeros((B, H))
+        for c in range(c0, c1):
+            s_end = s_end * dec[:, c] + right[:, c]
+            ld = ld + ctot[:, c]
+        state = torch.exp(ld)[..., None, None] * state + s_end
+    ys = []
+    for (c0, c1), s_in in zip(bounds, entering):  # y from each segment's entering state
+        for c in range(c0, c1):
+            inter = torch.einsum("bin,bhnp->bihp", Cc[:, c], s_in) * torch.exp(cum[:, c])[..., None]
+            ys.append(inter + torch.einsum("bijh,bjhp->bihp", W[:, c], xc[:, c]))
+            s_in = s_in * dec[:, c] + right[:, c]
+    return torch.stack(ys, 1).reshape(B, S, H, P)
+
+
+@pytest.mark.parametrize("segments", [None, 2])
+@pytest.mark.parametrize("case", SSD_CASES + SSD_ODD_CASES)
+def test_ssd_f32_decomposition_matches_pallas_and_sequential(case, segments):
+    """The f32 SSD kernel's decomposition against the Pallas kernel and the
+    sequential oracle at f32 tolerance, with the port's segment plan and
+    with segments of two chunks (end states, passing, y), at every chunk the
+    kernel takes."""
+    chunk = case[-1]
+    (jx, tx), (jdt, tdt), (jA, tA), (jB, tB), (jC, tC) = _ssd_inputs(case, "float32")
+    got = ssd_f32_emulation(tx, tdt, tA, tB, tC, chunk=chunk, segment_chunks=segments)
+    pallas = jops.ssd_scan(jx, jdt, jA, jB, jC, chunk=chunk, interpret=True)
+    assert tref.row_limit_ratio(got, torch.from_numpy(np.array(pallas)), *F32_ROW) <= 1.0
+    seq, _ = tref.ssd_sequential(tx, tdt, tA, tB, tC)
+    assert tref.row_limit_ratio(got, seq, *F32_ROW) <= 1.0
+
+
+@pytest.mark.parametrize("segments", [None, 2])
+@pytest.mark.parametrize("case", RWKV_CASES)
+def test_rwkv6_f32_decomposition_matches_pallas_and_sequential(case, segments):
+    """The f32 RWKV-6 kernel's decomposition against the Pallas kernel and
+    the sequential oracle at f32 tolerance, with the port's segment plan and
+    with segments of two chunks."""
+    chunk = case[-1]
+    (jr, tr), (jk, tk), (jv, tv), (jw, tw), (ju, tu) = _rwkv_inputs(case, "float32")
+    got = rwkv6_f32_emulation(tr, tk, tv, tw, tu, chunk=chunk, segment_chunks=segments)
+    assert got.dtype == torch.float32 and got.shape == tr.shape
+    pallas = jops.rwkv6_scan(jr, jk, jv, jw, ju, chunk=chunk, interpret=True)
+    assert tref.row_limit_ratio(got, torch.from_numpy(np.array(pallas)), *F32_ROW) <= 1.0
+    seq, _ = tref.rwkv6_sequential(tr, tk, tv, tw, tu)
+    assert tref.row_limit_ratio(got, seq, *F32_ROW) <= 1.0
+
+
+@pytest.mark.parametrize("P", [16, 32, 48, 64, 128])
+def test_ssd_segment_plan_counts_the_kernels_blocks(P):
+    """The f32 SSD kernel's segment plan counts the blocks the launcher runs:
+    a block per block_cols(P) value columns (64 where they divide P, else 16),
+    so no more than TARGET_BLOCKS blocks run a segment set unless one segment
+    already exceeds it, zamba2-7b's heads (112 blocks a segment) keep one
+    segment, and few heads get enough segments of at least
+    MIN_SEGMENT_CHUNKS chunks."""
+    cols = tssd.block_cols(P)
+    assert cols == (64 if P % 64 == 0 else 16) and P % cols == 0
+    shapes = [(1, 112, 32768, 64), (1, 112, 4096, 64), (1, 4, 32768, 64), (2, 3, 4096, 32)]
+    for B, H, S, Q in shapes:
+        nchunks = S // Q
+        seg = tssd.segment_chunks(B, H, S, P, Q)
+        nseg = -(-nchunks // seg)
+        per_segment = B * H * (P // cols)
+        assert nseg == 1 or (nseg * per_segment <= tssd.TARGET_BLOCKS
+                             and seg >= tssd.MIN_SEGMENT_CHUNKS)
+        if per_segment * 2 <= tssd.TARGET_BLOCKS and nchunks >= 2 * tssd.MIN_SEGMENT_CHUNKS:
+            assert nseg > 1
+    assert tssd.segment_chunks(1, 112, 4096, 64, 64) == 4096 // 64  # zamba2-7b: one segment
+
+
+def test_ssd_chunk_tile_is_the_smallest_instance():
+    """Every chunk of 1 to 128 rows runs in the smallest tile instance that
+    holds it; longer chunks have none."""
+    for Q in range(1, 129):
+        tile = tssd.chunk_tile(Q)
+        assert tile in tssd.CHUNKS and tile >= Q
+        assert all(t < Q for t in tssd.CHUNKS if t < tile)
+    with pytest.raises(ValueError, match="chunk"):
+        tssd.chunk_tile(129)
 
 
 @pytest.mark.parametrize("chunk", [17, 32, 64])
