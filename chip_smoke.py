@@ -108,8 +108,8 @@ SSD kernel's zamba2-7b's (68), the f32 RWKV-6 kernel's rwkv6-3b's (32).
 ``rwkv6_scan_hsd.launches`` each count their two kernels, and each must
 equal their sum on every path. A bf16 RWKV-6 call counts one launch however
 many grids it runs (three for a sequence of more than one segment), and so
-do the f32 RWKV-6 kernel and the f32 SSD kernel (C B^T and y, two more for
-more than one segment); each record's ``grids_per_call`` is the count of
+do the f32 RWKV-6 kernel and the f32 SSD kernel (two: C B^T, then y); each
+record's ``grids_per_call`` is the count of
 its grids in its profiled prefill's trace (rwkv6-3b's bf16 one at S=32768,
 the f32 ones at S=4096) over its calls there, and must match its plan.
 
@@ -189,7 +189,7 @@ COUNTERS = {
 # substrings of their names in the profiler's trace
 GRID_KERNELS = {
     "rwkv6_scan_mma": ("rwkv6_mma_kernel", "rwkv6_pass_states"),
-    "ssd_scan": ("ssd_gram_kernel", "ssd_f32_kernel", "ssd_pass_states"),
+    "ssd_scan": ("ssd_gram_kernel", "ssd_f32_kernel"),
     "rwkv6_scan": ("rwkv6_f32_kernel", "rwkv6_f32_pass_states"),
 }
 # grids a call, read from each kernel's profiled prefill: the bf16 RWKV-6
@@ -404,7 +404,7 @@ def scan_f32_evidence(name: str, ptxas: str, kernels: dict) -> dict:
 
 
 # the f32 scans' kernel templates, by the labels of their arguments
-SSD_F32_KERNELS = {"ssd_gram_kernel": ("Q",), "ssd_f32_kernel": ("Q", "PB", "y")}
+SSD_F32_KERNELS = {"ssd_gram_kernel": ("Q",), "ssd_f32_kernel": ("Q", "PB")}
 RWKV_F32_KERNELS = {"rwkv6_f32_kernel": ("P", "NCOL", "y")}
 
 
@@ -970,10 +970,53 @@ def decode_logits(params, cfg, toks, device):
     return torch.cat(outs, 1)
 
 
+def scan_rows_vs_f64(arch: str, p32, cfg32, toks) -> dict:
+    """Each f32 scan call of the kernel-path forward on ``toks``, at the
+    model's own inputs: the kernel's output and its plain version's against
+    the sequential oracle computed in f64. Per row (a head's P values at one
+    position, which the mixers' per-head norms rescale) the largest error
+    over the row's root mean square (``row_rel``), and the ratio to the f32
+    tolerance (``tol_ratio``), each the largest over the calls. Fails unless
+    the kernel's ``tol_ratio`` is at most 1 at every call."""
+    out = {}
+    for name, (kernel, plain, oracle) in SCANS.items():
+        if name not in F32_LAUNCHES[arch]:
+            continue
+        calls = []
+
+        def record(*a, chunk, kernel=kernel, calls=calls):
+            y = kernel(*a, chunk=chunk)
+            calls.append((a, chunk, y))
+            return y
+
+        saved = getattr(ops, name)
+        setattr(ops, name, record)
+        try:
+            forward(p32, cfg32, toks)
+        finally:
+            setattr(ops, name, saved)
+        rec = {"calls": len(calls)}
+        for label in ("kernel", "plain"):
+            row_rel, tol_ratio = [], []
+            for a, chunk, y in calls:
+                got = y if label == "kernel" else plain(*a, chunk=chunk)
+                truth, _ = oracle(*a, acc=torch.float64)
+                row_rel.append(row_limit_ratio(got, truth, 0.0, 1.0))
+                tol_ratio.append(row_limit_ratio(got, truth, *SCAN_TOL[torch.float32]))
+            rec[label] = {"row_rel": max(row_rel), "row_rel_call": row_rel.index(max(row_rel)),
+                          "tol_ratio": max(tol_ratio)}
+        log(f"[{arch} f32 {name} vs f64 oracle, S={toks.shape[1]}] {json.dumps(rec)}")
+        assert rec["kernel"]["tol_ratio"] <= 1.0, f"{arch} {name} off the f64 oracle: {rec}"
+        out[name] = rec
+    return out
+
+
 def f32_phase(arch: str, cfg, params, device, card) -> tuple[dict, dict]:
-    """The two logit checks with the same weights upcast to f32: kernel path
-    against plain path at S=4096, and decode against the kernel-path forward
-    on the first 64 tokens. What the bf16 checks show beyond these gaps is
+    """The logit checks with the same weights upcast to f32: kernel path
+    against plain path at S=4096, and on the first 64 tokens decode against
+    the kernel-path forward, decode against the plain-path forward, and the
+    two forwards against each other; then each f32 scan call of that
+    forward against its f64 oracle (``scan_rows_vs_f64``). What the bf16 checks show beyond these gaps is
     the amplification of bf16 rounding, not the kernels. The kernel-path
     prefill is then profiled once (the f32 scans' grids a call) and timed
     warm with CUDA events. Returns each kernel's launches by path and the
@@ -1005,8 +1048,21 @@ def f32_phase(arch: str, cfg, params, device, card) -> tuple[dict, dict]:
     toks = tokens[:, :DECODE_LEN]
     (fwd, _), f_counts = counted_all(f"{arch} f32 forward S={DECODE_LEN}", expect, forward, p32,
                                      cfg32, toks)
-    logits_close(f"{arch} f32 decode vs forward", decode_logits(p32, cfg32, toks, device), fwd,
+    dec = decode_logits(p32, cfg32, toks, device)
+    logits_close(f"{arch} f32 decode vs forward", dec, fwd, LIMITS[arch]["decode_f32"],
+                 min_top1=1.0)
+    # a second witness of that gap: decode against the plain path's forward,
+    # and the kernel path's forward against the plain path's, at this length.
+    # Both compare every position, as decode vs forward does, so both take
+    # its limit (prefill_f32 was read on a prefill's last position only)
+    with plain_kernels():
+        (p_fwd, _), _ = counted_all(f"{arch} f32 forward S={DECODE_LEN} (plain)", {}, forward,
+                                    p32, cfg32, toks)
+    logits_close(f"{arch} f32 decode vs plain forward", dec, p_fwd, LIMITS[arch]["decode_f32"],
+                 min_top1=1.0)
+    logits_close(f"{arch} f32 forward S={DECODE_LEN} kernel vs plain", fwd, p_fwd,
                  LIMITS[arch]["decode_f32"], min_top1=1.0)
+    scan_rows_vs_f64(arch, p32, cfg32, toks)
     del p32
     torch.cuda.empty_cache()
     return {name: {f"{arch}:f32_prefill_{CHECK_LEN}": k_counts[name],
@@ -1494,7 +1550,7 @@ def main() -> int:
     rwkv_evidence = rwkv6_mma_evidence(ptxas["rwkv6_scan_mma"])
     f32_flash_evidence = flash_f32_evidence(ptxas["flash_attention"])
     ssd_f32_sass = scan_f32_evidence("ssd_scan", ptxas["ssd_scan"], SSD_F32_KERNELS)
-    assert len(ssd_f32_sass["ptxas"]) == len(ssd.CHUNKS) * 5, "ssd_scan instances"
+    assert len(ssd_f32_sass["ptxas"]) == len(ssd.CHUNKS) * 3, "ssd_scan instances"
     rwkv_f32_sass = scan_f32_evidence("rwkv6_scan", ptxas["rwkv6_scan"], RWKV_F32_KERNELS)
     assert len(rwkv_f32_sass["ptxas"]) == 8, "rwkv6_scan instances"
     jrba_sass = jrba_evidence(ptxas["jrba_congestion"])
@@ -1546,13 +1602,12 @@ def main() -> int:
     # RWKV-6 kernel's at S=32768, the f32 scans' at S=4096. The RWKV-6
     # kernels run three when their plan cuts the sequence into more than one
     # segment (end states, passing, y), else one; the f32 SSD kernel runs
-    # C B^T first, so four or two
+    # two (C B^T, then y)
     B_, S_, H_, P_, Q_ = RWKV_MODEL[0]
-    Bs, _, Hs, Ps, _, Qs = SSD_MODEL[1]
     planned = {
         "rwkv6_scan_mma": 3 if rw.segment_chunks(B_, H_, S_, P_, Q_) < S_ // Q_ else 1,
         "rwkv6_scan": 3 if rw.segment_chunks(B_, H_, CHECK_LEN, P_, Q_) < CHECK_LEN // Q_ else 1,
-        "ssd_scan": 4 if ssd.segment_chunks(Bs, Hs, CHECK_LEN, Ps, Qs) < CHECK_LEN // Qs else 2,
+        "ssd_scan": 2,
     }
     for name, grids in planned.items():
         assert GRIDS_PER_CALL[name] == grids, (

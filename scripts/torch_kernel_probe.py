@@ -43,9 +43,8 @@ then:
   that many warps);
 * ssd32: the f32 SSD kernel alone, against its plain version at zamba2-7b's
   heads (S=32768 and 4096) and at ``chip_smoke.py``'s cases (the odd chunks
-  included), timed; then at both lengths with the sequence cut into other
-  numbers of segments (the port's plan replaced) and through diagnostic
-  builds: 32 value columns a block (its plan counting those blocks),
+  included), timed; then at both lengths through diagnostic builds: 32
+  value columns a block (``ssd.block_cols`` patched to match),
   __expf, the rows of y in warp order, no unrolling, and
   builds that skip the C B^T grid or empty one part (C H, W x, the state
   update, W), whose output is wrong: the time they leave is that part's;
@@ -117,8 +116,8 @@ SSD_VARIANTS = {f"block_cols_{pb}": [(SSD_DISPATCH, f"  if (P % {pb} != 0) retur
 # plan counts those blocks), and without its C B^T grid (timing only)
 SSD32_VARIANTS = {
     "block_cols_32": [("pb != (P % 64 == 0 ? 64 : 16)", "pb != (P % 64 == 0 ? 32 : 16)"),
-                      ("  if (pb == 64)\n    return launch<Q, 64>(",
-                       "  if (pb == 32)\n    return launch<Q, 32>(")],
+                      ("  if (pb == 64) return launch<Q, 64>(",
+                       "  if (pb == 32) return launch<Q, 32>(")],
     "no_gram": [("  ssd_gram_kernel<Q><<<", "  if (false) ssd_gram_kernel<Q><<<")],
 }
 SSD32_VARIANTS.update({
@@ -136,8 +135,6 @@ SSD32_SPLIT = {
     "no_state": [("for (int j = 0; j < q4; ++j) {", "for (int j = 0; j < 0; ++j) {")],
     "no_w": [("        if (j < jl) {", "        if (false) {")],
 }
-# segments a call the f32 SSD kernel is timed at, beside the plan's
-SSD32_SEGMENTS = (1, 2, 4, 8)
 # the bf16 RWKV-6 source with a warp width of 16 or 64 at P=64; the probe
 # plans the segments for that many warps (rw.value_cols patched alike)
 RWKV_COLS = (16, 64)
@@ -474,37 +471,22 @@ def timed_against_port(fn, hsd, chunk: int, port) -> dict:
 
 
 def ssd32_variants(shapes, device) -> dict:
-    """The f32 SSD kernel's milliseconds at other segment counts and through
-    each diagnostic build (:data:`SSD32_VARIANTS`: 32 columns a block with
-    its plan counting those blocks, __expf, no C B^T grid, the rows of y in
-    warp order, no unrolling of the y products;
-    :data:`SSD32_SPLIT`: one part emptied), beside the port's plan and
-    build."""
+    """The f32 SSD kernel's milliseconds through each diagnostic build
+    (:data:`SSD32_VARIANTS`: 32 columns a block, __expf, no C B^T grid, the
+    rows of y in warp order, no unrolling of the y products;
+    :data:`SSD32_SPLIT`: one part emptied), beside the port's build."""
     libs = build_variants("ssd_scan", {**SSD32_VARIANTS, **SSD32_SPLIT})
     cols32 = mock.patch.object(ssd, "block_cols", lambda P: 32 if P % 64 == 0 else 16)
     out = {}
     for shape in shapes:
-        B, S, H, P, N, Q = shape
+        Q = shape[-1]
         hsd = scan_hsd("ssd_scan", shape, torch.float32, device)
         port = ssd.ssd_scan_hsd(*hsd, chunk=Q)
-        nchunks = S // Q
-        row = {"plan_segment_chunks": ssd.segment_chunks(B, H, S, P, Q),
-               "port_ms": cs.time_call(ssd.ssd_scan_hsd, hsd, dict(chunk=Q), reps=5)}
-
-        def segments(nseg):
-            return mock.patch.object(ssd, "segment_chunks",
-                                     lambda *a, seg=-(-nchunks // nseg): seg)
-
-        for nseg in SSD32_SEGMENTS:
-            with segments(nseg):
-                row[f"segments_{nseg}"] = timed_against_port(ssd.ssd_scan_hsd, hsd, Q, port)
+        row = {"port_ms": cs.time_call(ssd.ssd_scan_hsd, hsd, dict(chunk=Q), reps=5)}
         for name, lib in libs.items():
-            plans = [("", contextlib.nullcontext())]
-            if name.startswith("block_cols_32"):
-                plans = [("", cols32)]
-            for suffix, plan in plans:
-                with wrappers_load("ssd_scan", lib), plan:
-                    row[name + suffix] = timed_against_port(ssd.ssd_scan_hsd, hsd, Q, port)
+            plan = cols32 if name == "block_cols_32" else contextlib.nullcontext()
+            with wrappers_load("ssd_scan", lib), plan:
+                row[name] = timed_against_port(ssd.ssd_scan_hsd, hsd, Q, port)
         row["gram_share_ms"] = row["port_ms"] - row["no_gram"]["ms"]
         out[str(list(shape))] = row
         print(f"[ssd32] {list(shape)} variants: {dumps_strict(row)}", flush=True)

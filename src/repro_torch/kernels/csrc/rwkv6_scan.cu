@@ -60,6 +60,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "scan_pass.cuh"
 
 namespace {
@@ -96,28 +97,6 @@ struct Smem {
   static constexpr int FLOATS = BON_OFF + NW * QT;
   static constexpr int BYTES = FLOATS * 4;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
 
 // Issue the loads of one chunk (rows c0..c0+Q-1) into a stage, by all the
 // block's threads: 16-byte cp.async where every row is 16-byte aligned

@@ -1,5 +1,5 @@
-// The middle grid of the scans' sequence split (the chunked state passing of
-// flash-linear-attention), shared by csrc/ssd_scan.cu, csrc/rwkv6_scan.cu and
+// The middle grid of the RWKV-6 scans' sequence split (the chunked state
+// passing of flash-linear-attention), shared by csrc/rwkv6_scan.cu and
 // csrc/rwkv6_scan_mma.cu. The first grid runs every segment of the sequence
 // but the last from a zero state and stores its end state, E floats a
 // segment, and its summed log decay, DP floats a segment (one per key

@@ -33,13 +33,14 @@
 //   * C B^T once per (b, chunk): grid 0 writes G (B, S/q, q, round4(q)) to a
 //     workspace (8.4 MB at S=32768, inside the 50 MB L2), and the head
 //     blocks read it;
-//   * a block per (b, h, segment of the sequence, PB value columns), where a
-//     segment is a run of chunks that the wrapper plans (ssd.segment_chunks):
-//     with more than one segment, grid 1 runs every segment but the last
-//     from a zero state to its end state and summed log decay, grid 2
-//     (csrc/scan_pass.cuh) passes the states along, and grid 3 runs every
-//     segment from its entering state and writes y; one segment runs grid 3
-//     alone;
+//   * a block per (b, h, PB value columns) walks every chunk of the
+//     sequence and writes y: at zamba2-7b's 112 heads that is 112 blocks of
+//     64 columns, one an SM (a block of the y pass takes 175 KB of shared
+//     memory at chunk 64). A sequence split with state passing, as
+//     csrc/rwkv6_scan_mma.cu runs it, was built and timed: 2, 4 and 8
+//     segments were slower than one at S=4096 and S=32768, since the split's
+//     extra grids (end states from zero, then the passing) cost more than
+//     the blocks it adds gain on a card the heads already fill;
 //   * the next chunk's G, C, B, x and dt load by cp.async into a second
 //     stage while the current chunk computes (16 bytes a copy where rows are
 //     16-byte aligned, else 4); tiles keep their natural row-major layout
@@ -60,7 +61,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include "scan_pass.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
@@ -79,53 +80,31 @@ struct Strides {
 };
 
 // Shared memory of the scan kernel, in floats. A stage holds one chunk: G
-// (then W, in place) and C for the y pass only, B (then B o w, in place), x
-// and dt. Each warp writes only the rows of W and the columns of B its own
-// threads read. The y pass keeps two copies of the state: the one entering a chunk
-// (read by C H) and the one leaving it. Each warp keeps its cumsum and w.
-// Two stages where they fit, else one (Q = 128 in the y pass).
-template <int Q, int PB, bool WITH_Y>
+// (then W, in place), C, B (then B o w, in place), x and dt. Each warp writes
+// only the rows of W and the columns of B its own threads read. Two copies of
+// the state: the one entering a chunk (read by C H) and the one leaving it.
+// Each warp keeps its cumsum and w. Two stages where they fit, else one
+// (Q = 128).
+template <int Q, int PB>
 struct Smem {
   static constexpr int GS = Q + 4;   // row stride of the G / W tile
   static constexpr int XS = PB + 4;  // row stride of the x tile and the state copies
   static constexpr int G_OFF = 0;
-  static constexpr int C_OFF = G_OFF + (WITH_Y ? Q * GS : 0);
-  static constexpr int B_OFF = C_OFF + (WITH_Y ? Q * CS : 0);
+  static constexpr int C_OFF = G_OFF + Q * GS;
+  static constexpr int B_OFF = C_OFF + Q * CS;
   static constexpr int X_OFF = B_OFF + Q * CS;
   static constexpr int DT_OFF = X_OFF + Q * XS;
   static constexpr int STAGE = DT_OFF + Q;
   static constexpr int HCOPY = NS * XS;
-  static constexpr int REST = (WITH_Y ? 2 * HCOPY : 0) + WARPS * 2 * Q;
+  static constexpr int REST = 2 * HCOPY + WARPS * 2 * Q;
   static constexpr int STAGES = (2 * STAGE + REST) * 4 <= SMEM_MAX ? 2 : 1;
   static constexpr int H_OFF = STAGES * STAGE;
-  static constexpr int CUM_OFF = H_OFF + (WITH_Y ? 2 * HCOPY : 0);
+  static constexpr int CUM_OFF = H_OFF + 2 * HCOPY;
   static constexpr int FLOATS = CUM_OFF + WARPS * 2 * Q;
   static constexpr int BYTES = FLOATS * 4;
   static_assert(BYTES <= SMEM_MAX, "shared memory");
   static_assert(STAGE % 4 == 0 && HCOPY % 4 == 0, "16-byte aligned tiles");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
 
 // K consecutive floats of shared memory, 4K-byte aligned
 template <int K>
@@ -165,15 +144,15 @@ __device__ __forceinline__ float comp(const float4& v, int k) {
 
 // Issue the loads of one chunk (rows c0..c0+q-1) into a stage: 16-byte
 // cp.async where every row of x, B and C is 16-byte aligned (vec), else 4
-// bytes at a time; G (the y pass) from the wrapper's workspace, q rows of gsw
-// floats; dt 4 bytes at a time. Rows q..Q-1 and columns N..63 are never
-// written, so they stay zero.
-template <int Q, int PB, bool WITH_Y>
+// bytes at a time; G from the wrapper's workspace, q rows of gsw floats; dt 4
+// bytes at a time. Rows q..Q-1 and columns N..63 are never written, so they
+// stay zero.
+template <int Q, int PB>
 __device__ __forceinline__ void load_chunk(float* stage, const float* xb, const float* dtb,
                                            const float* Bb, const float* Cb, const float* Gc,
                                            long long c0, int q, int N, int gsw,
                                            const Strides& st, bool vec) {
-  using L = Smem<Q, PB, WITH_Y>;
+  using L = Smem<Q, PB>;
   float* gs = stage + L::G_OFF;
   float* cs = stage + L::C_OFF;
   float* bs = stage + L::B_OFF;
@@ -184,7 +163,7 @@ __device__ __forceinline__ void load_chunk(float* stage, const float* xb, const 
     const int gn = N / 4;  // 16-byte granules a row of B or C
     for (int i = tid; i < q * gn; i += THREADS) {
       const int r = i / gn, g = 4 * (i - r * gn);
-      if (WITH_Y) cp_async16(cs + r * CS + g, Cb + (c0 + r) * st.c_s + g);
+      cp_async16(cs + r * CS + g, Cb + (c0 + r) * st.c_s + g);
       cp_async16(bs + r * CS + g, Bb + (c0 + r) * st.b_s + g);
     }
     constexpr int GX = PB / 4;
@@ -195,7 +174,7 @@ __device__ __forceinline__ void load_chunk(float* stage, const float* xb, const 
   } else {
     for (int i = tid; i < q * N; i += THREADS) {
       const int r = i / N, n = i - r * N;
-      if (WITH_Y) cp_async4(cs + r * CS + n, Cb + (c0 + r) * st.c_s + n);
+      cp_async4(cs + r * CS + n, Cb + (c0 + r) * st.c_s + n);
       cp_async4(bs + r * CS + n, Bb + (c0 + r) * st.b_s + n);
     }
     for (int i = tid; i < q * PB; i += THREADS) {
@@ -203,12 +182,10 @@ __device__ __forceinline__ void load_chunk(float* stage, const float* xb, const 
       cp_async4(xs + r * L::XS + p, xb + (c0 + r) * st.x_s + p);
     }
   }
-  if (WITH_Y) {
-    const int gg = gsw / 4;
-    for (int i = tid; i < q * gg; i += THREADS) {
-      const int r = i / gg, g = 4 * (i - r * gg);
-      cp_async16(gs + r * L::GS + g, Gc + (long long)r * gsw + g);
-    }
+  const int gg = gsw / 4;
+  for (int i = tid; i < q * gg; i += THREADS) {
+    const int r = i / gg, g = 4 * (i - r * gg);
+    cp_async16(gs + r * L::GS + g, Gc + (long long)r * gsw + g);
   }
   for (int i = tid; i < q; i += THREADS) cp_async4(dts + i, dtb + (c0 + i) * st.dt_s);
   cp_async_commit();
@@ -284,19 +261,16 @@ ssd_gram_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
   }
 }
 
-// One block: (b, h, segment, PB value columns p0..). WITH_Y: run the segment
-// from its entering state (zero, or ``state`` when the sequence has more
-// than one segment) and write y; else run it from zero and store its end
-// state in ``state`` and its summed log decay in ``decay``.
-template <int Q, int PB, bool WITH_Y>
+// One block: (b, h, PB value columns p0..), every chunk from a zero state;
+// writes y.
+template <int Q, int PB>
 __global__ void __launch_bounds__(THREADS, 1)
 ssd_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ A, const float* __restrict__ Bm,
                const float* __restrict__ Cm, const float* __restrict__ G,
-               float* __restrict__ y, float* __restrict__ state, float* __restrict__ decay,
-               int H, int S, int q, int N, int seg_chunks, int nseg, Strides st, int vec) {
+               float* __restrict__ y, int H, int S, int q, int N, Strides st, int vec) {
   static_assert(Q % 16 == 0 && Q <= 128 && PB % 16 == 0 && PB <= 64, "Q, PB");
-  using L = Smem<Q, PB, WITH_Y>;
+  using L = Smem<Q, PB>;
   constexpr int TQ = Q / 16;   // rows of y a thread: yt * TQ ..
   constexpr int TC = PB / 16;  // value columns a thread, of y and of the state: tx * TC ..
   constexpr int TN = NS / 16;  // state rows a thread: ty * TN ..
@@ -309,8 +283,7 @@ ssd_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   // W x gives every scheduler the same number of steps
   const int rb = warp < WARPS / 2 ? warp : 3 * WARPS / 2 - 1 - warp;
   const int yt = 2 * rb + (ty & 1);  // the thread's row group of y
-  const int p0 = blockIdx.x * PB, seg = blockIdx.y, bh = blockIdx.z;
-  const int P = gridDim.x * PB;
+  const int p0 = blockIdx.x * PB, bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   const float a = A[h];
   const float* xb = x + b * st.x_b + h * st.x_h + p0;
@@ -319,12 +292,8 @@ ssd_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const float* Cb = Cm + b * st.c_b;
   float* yb = y + b * st.y_b + h * st.y_h + p0;
   const int nchunks = S / q, gsw = (q + 3) & ~3, n4 = (N + 3) & ~3, q4 = (q + 3) & ~3;
-  const int c_begin = seg * seg_chunks;
-  const int c_end = min(nchunks, c_begin + seg_chunks);
   float* cum = smem + L::CUM_OFF + warp * 2 * Q;  // this warp's cumsum of dt A
   float* wj = cum + Q;                            // exp(cum_q - cum_j) dt_j
-  // this segment's state in the workspace, [n][p] (none for one segment)
-  float* seg_state = nseg > 1 ? state + ((size_t)bh * nseg + seg) * N * P : nullptr;
   const float* Gb = G + (size_t)b * nchunks * q * gsw;
 
   for (int i = tid; i < L::FLOATS / 4; i += THREADS)
@@ -332,37 +301,30 @@ ssd_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   __syncthreads();
 
   // the state, rows ty * TN + r and columns tx * TC + c of the slice, f32
-  // across chunks; the y pass also keeps it in the shared copy of the chunk
+  // across chunks, from zero (the zeroed shared copies hold it too)
   float hs[TN][TC];
 #pragma unroll
-  for (int r = 0; r < TN; ++r) {
-    const int n = ty * TN + r;
+  for (int r = 0; r < TN; ++r)
 #pragma unroll
-    for (int c = 0; c < TC; ++c)
-      hs[r][c] = WITH_Y && nseg > 1 && n < N ? seg_state[(size_t)n * P + p0 + tx * TC + c] : 0.f;
-    if (WITH_Y) store_vec<TC>(smem + L::H_OFF + n * L::XS + tx * TC, hs[r]);
-  }
-  float ld = 0.f;  // the segment's summed log decay
+    for (int c = 0; c < TC; ++c) hs[r][c] = 0.f;
 
-  if (L::STAGES == 2 && c_begin < c_end)
-    load_chunk<Q, PB, WITH_Y>(smem, xb, dtb, Bb, Cb, Gb + (size_t)c_begin * q * gsw,
-                              (long long)c_begin * q, q, N, gsw, st, vec);
-  for (int c = c_begin; c < c_end; ++c) {
-    const int k = c - c_begin;
-    float* stage = smem + (L::STAGES == 2 ? (k & 1) * L::STAGE : 0);
+  if (L::STAGES == 2)
+    load_chunk<Q, PB>(smem, xb, dtb, Bb, Cb, Gb, 0, q, N, gsw, st, vec);
+  for (int c = 0; c < nchunks; ++c) {
+    float* stage = smem + (L::STAGES == 2 ? (c & 1) * L::STAGE : 0);
     if (L::STAGES == 1) {
       __syncthreads();  // every read of the stage is done
-      load_chunk<Q, PB, WITH_Y>(stage, xb, dtb, Bb, Cb, Gb + (size_t)c * q * gsw,
-                                (long long)c * q, q, N, gsw, st, vec);
+      load_chunk<Q, PB>(stage, xb, dtb, Bb, Cb, Gb + (size_t)c * q * gsw, (long long)c * q, q, N,
+                        gsw, st, vec);
     }
     cp_async_wait_all();
     // the chunk is in its stage; every read of the other stage, and of the
     // state copy this chunk writes, is done
     __syncthreads();
-    if (L::STAGES == 2 && c + 1 < c_end)
-      load_chunk<Q, PB, WITH_Y>(smem + ((k + 1) & 1) * L::STAGE, xb, dtb, Bb, Cb,
-                                Gb + (size_t)(c + 1) * q * gsw, (long long)(c + 1) * q, q, N,
-                                gsw, st, vec);
+    if (L::STAGES == 2 && c + 1 < nchunks)
+      load_chunk<Q, PB>(smem + ((c + 1) & 1) * L::STAGE, xb, dtb, Bb, Cb,
+                        Gb + (size_t)(c + 1) * q * gsw, (long long)(c + 1) * q, q, N, gsw, st,
+                        vec);
     float* gw = stage + L::G_OFF;
     const float* cs = stage + L::C_OFF;
     float* bs = stage + L::B_OFF;
@@ -387,12 +349,12 @@ ssd_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     const float ctot = carry;
     for (int i = lane; i < Q; i += 32) wj[i] = expf(ctot - cum[i]) * dts[i];
     __syncwarp();
-    ld += ctot;
 
     // This warp's share of W and B o w, in place: the rows of W its threads'
-    // y reads (row block rb) and the columns of B their state rows read, so no block barrier stands between them and the products. Every
-    // load comes before the stores: the stores may alias them.
-    if (WITH_Y) {  // W = mask(G exp(cum_i - cum_j) dt_j), up to the last 4-column group read
+    // y reads (row block rb) and the columns of B their state rows read, so
+    // no block barrier stands between them and the products. Every load
+    // comes before the stores: the stores may alias them.
+    {  // W = mask(G exp(cum_i - cum_j) dt_j), up to the last 4-column group read
       constexpr int WR = 2 * TQ;                 // rows of the warp
       constexpr int JS = Q < 32 ? 1 : Q / 32;    // columns of a lane: lane + 32 js
       const int r0 = rb * WR;
@@ -441,10 +403,10 @@ ssd_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     }
     __syncwarp();
 
-    if (WITH_Y) {
+    {
       // y on rows yt * TQ + r, columns tx * TC + cc:
       //   exp(cum_i) (C H) over the state rows, then W x up to the last row
-      const float* hc = smem + L::H_OFF + (k & 1) * L::HCOPY;
+      const float* hc = smem + L::H_OFF + (c & 1) * L::HCOPY;
       float acc[TQ][TC];
 #pragma unroll
       for (int r = 0; r < TQ; ++r)
@@ -520,29 +482,13 @@ ssd_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       for (int r = 0; r < TN; ++r) {
 #pragma unroll
         for (int cc = 0; cc < TC; ++cc) hs[r][cc] = hs[r][cc] * gl + acc[r][cc];
-        if (WITH_Y)  // the copy the next chunk's C H reads
-          store_vec<TC>(smem + L::H_OFF + ((k + 1) & 1) * L::HCOPY + (ty * TN + r) * L::XS +
-                            tx * TC,
-                        hs[r]);
+        // the copy the next chunk's C H reads
+        store_vec<TC>(smem + L::H_OFF + ((c + 1) & 1) * L::HCOPY + (ty * TN + r) * L::XS +
+                          tx * TC,
+                      hs[r]);
       }
     }
   }
-
-  if (!WITH_Y) {
-#pragma unroll
-    for (int r = 0; r < TN; ++r) {
-      const int n = ty * TN + r;
-      if (n < N) store_vec<TC>(seg_state + (size_t)n * P + p0 + tx * TC, hs[r]);
-    }
-    if (blockIdx.x == 0 && tid == 0) decay[(size_t)bh * nseg + seg] = ld;
-  }
-}
-
-// Grid 2: the state entering every segment, in place of the end states grid 1
-// stored; every element of a segment's state decays by the same exp(ld).
-__global__ void ssd_pass_states(float* __restrict__ state, const float* __restrict__ decay,
-                                int BH, int E, int nseg) {
-  scan_pass_states(state, decay, BH, E, 1, nseg);
 }
 
 template <typename Kernel>
@@ -552,10 +498,9 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
 
 template <int Q, int PB>
 int launch(const float* x, const float* dt, const float* A, const float* Bm, const float* Cm,
-           float* y, float* G, float* state, float* decay, int B, int H, int S, int P, int N,
-           int q, int seg_chunks, const Strides& st, int vec, cudaStream_t stream) {
+           float* y, float* G, int B, int H, int S, int P, int N, int q, const Strides& st,
+           int vec, cudaStream_t stream) {
   const int nchunks = S / q;
-  const int nseg = (nchunks + seg_chunks - 1) / seg_chunks;
   const int gram_smem = 2 * Q * CS * 4;
   cudaError_t err = set_smem(ssd_gram_kernel<Q>, gram_smem);
   if (err != cudaSuccess) return (int)err;
@@ -563,38 +508,20 @@ int launch(const float* x, const float* dt, const float* A, const float* Bm, con
                                                                        vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (nseg > 1) {
-    using L1 = Smem<Q, PB, false>;
-    err = set_smem(ssd_f32_kernel<Q, PB, false>, L1::BYTES);
-    if (err != cudaSuccess) return (int)err;
-    ssd_f32_kernel<Q, PB, false><<<dim3(P / PB, nseg - 1, B * H), THREADS, L1::BYTES, stream>>>(
-        x, dt, A, Bm, Cm, G, y, state, decay, H, S, q, N, seg_chunks, nseg, st, vec);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const long long n = (long long)B * H * N * P;
-    ssd_pass_states<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(state, decay, B * H, N * P,
-                                                                      nseg);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  using L3 = Smem<Q, PB, true>;
-  err = set_smem(ssd_f32_kernel<Q, PB, true>, L3::BYTES);
+  using L = Smem<Q, PB>;
+  err = set_smem(ssd_f32_kernel<Q, PB>, L::BYTES);
   if (err != cudaSuccess) return (int)err;
-  ssd_f32_kernel<Q, PB, true><<<dim3(P / PB, nseg, B * H), THREADS, L3::BYTES, stream>>>(
-      x, dt, A, Bm, Cm, G, y, state, decay, H, S, q, N, seg_chunks, nseg, st, vec);
+  ssd_f32_kernel<Q, PB><<<dim3(P / PB, B * H), THREADS, L::BYTES, stream>>>(
+      x, dt, A, Bm, Cm, G, y, H, S, q, N, st, vec);
   return (int)cudaGetLastError();
 }
 
 template <int Q>
 int dispatch_pb(int pb, const float* x, const float* dt, const float* A, const float* Bm,
-                const float* Cm, float* y, float* G, float* state, float* decay, int B, int H,
-                int S, int P, int N, int q, int seg_chunks, const Strides& st, int vec,
-                cudaStream_t s) {
-  if (pb == 64)
-    return launch<Q, 64>(x, dt, A, Bm, Cm, y, G, state, decay, B, H, S, P, N, q, seg_chunks, st,
-                         vec, s);
-  return launch<Q, 16>(x, dt, A, Bm, Cm, y, G, state, decay, B, H, S, P, N, q, seg_chunks, st,
-                       vec, s);
+                const float* Cm, float* y, float* G, int B, int H, int S, int P, int N, int q,
+                const Strides& st, int vec, cudaStream_t s) {
+  if (pb == 64) return launch<Q, 64>(x, dt, A, Bm, Cm, y, G, B, H, S, P, N, q, st, vec, s);
+  return launch<Q, 16>(x, dt, A, Bm, Cm, y, G, B, H, S, P, N, q, st, vec, s);
 }
 
 }  // namespace
@@ -603,28 +530,22 @@ int dispatch_pb(int pb, const float* x, const float* dt, const float* A, const f
 // elements; every last axis is dense; every operand is f32. Q: the chunk,
 // any length dividing S; tile: the instance it runs in (16, 32, 64 or 128,
 // at least Q; the caller picks the smallest). pb: the value columns a block
-// takes, which the caller's segment plan counts on: 64 where they divide P,
-// else 16; any other is refused. G: B * (S/Q) * Q * round4(Q) floats,
-// 16-byte aligned. seg_chunks: chunks of a segment; when the sequence has
-// more than one segment, state holds B*H*nseg*N*P floats and decay B*H*nseg
-// (nseg = ceil((S/Q) / seg_chunks)), else both may be null. vec says that
-// every row of x, B and C is 16-byte aligned and N a multiple of 4. y must
-// be 16-byte aligned with strides of multiples of 4 floats. Runs two
-// grids (G, y), or four when there is more than one segment. Returns the
+// takes: 64 where they divide P, else 16; any other is refused. G: B * (S/Q)
+// * Q * round4(Q) floats, 16-byte aligned. vec says that every row of x, B
+// and C is 16-byte aligned and N a multiple of 4. y must be 16-byte aligned
+// with strides of multiples of 4 floats. Runs two grids (G, y). Returns the
 // first failing launch's cudaGetLastError() code (0 on success). Does not
 // synchronise.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A, const void* Bm,
-                               const void* Cm, void* y, void* G, void* state, void* decay, int B,
-                               int H, int S, int P, int N, int Q, int tile, int pb,
-                               int seg_chunks, const long long* strides, int vec, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || N < 1 || N > NS || P < 16 || P % 16 != 0 || Q < 1 ||
-      Q > tile || S % Q != 0 || pb != (P % 64 == 0 ? 64 : 16) || seg_chunks < 1 ||
-      G == nullptr || reinterpret_cast<uintptr_t>(G) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(y) % 16 != 0 || strides[10] % 4 != 0 || strides[11] % 4 != 0 ||
-      strides[12] % 4 != 0 || (vec && N % 4 != 0))
+                               const void* Cm, void* y, void* G, int B, int H, int S, int P,
+                               int N, int Q, int tile, int pb, const long long* strides, int vec,
+                               void* stream) {
+  if (B < 1 || H < 1 || H > 65535 / B || S < 1 || N < 1 || N > NS || P < 16 || P % 16 != 0 ||
+      Q < 1 || Q > tile || S % Q != 0 || pb != (P % 64 == 0 ? 64 : 16) || G == nullptr ||
+      reinterpret_cast<uintptr_t>(G) % 16 != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0 ||
+      strides[10] % 4 != 0 || strides[11] % 4 != 0 || strides[12] % 4 != 0 ||
+      (vec && N % 4 != 0))
     return (int)cudaErrorInvalidValue;
-  const int nseg = (S / Q + seg_chunks - 1) / seg_chunks;
-  if (nseg > 1 && (state == nullptr || decay == nullptr)) return (int)cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],
                    strides[5], strides[6], strides[7], strides[8], strides[9],
                    strides[10], strides[11], strides[12]};
@@ -636,17 +557,12 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A, con
   const float* cf = static_cast<const float*>(Cm);
   float* yf = static_cast<float*>(y);
   float* gf = static_cast<float*>(G);
-  float* sf = static_cast<float*>(state);
-  float* df = static_cast<float*>(decay);
   switch (tile) {
-    case 16: return dispatch_pb<16>(pb, xf, dtf, Af, bf, cf, yf, gf, sf, df, B, H, S, P, N, Q,
-                                    seg_chunks, st, vec, s);
-    case 32: return dispatch_pb<32>(pb, xf, dtf, Af, bf, cf, yf, gf, sf, df, B, H, S, P, N, Q,
-                                    seg_chunks, st, vec, s);
-    case 64: return dispatch_pb<64>(pb, xf, dtf, Af, bf, cf, yf, gf, sf, df, B, H, S, P, N, Q,
-                                    seg_chunks, st, vec, s);
-    case 128: return dispatch_pb<128>(pb, xf, dtf, Af, bf, cf, yf, gf, sf, df, B, H, S, P, N, Q,
-                                      seg_chunks, st, vec, s);
+    case 16: return dispatch_pb<16>(pb, xf, dtf, Af, bf, cf, yf, gf, B, H, S, P, N, Q, st, vec, s);
+    case 32: return dispatch_pb<32>(pb, xf, dtf, Af, bf, cf, yf, gf, B, H, S, P, N, Q, st, vec, s);
+    case 64: return dispatch_pb<64>(pb, xf, dtf, Af, bf, cf, yf, gf, B, H, S, P, N, Q, st, vec, s);
+    case 128:
+      return dispatch_pb<128>(pb, xf, dtf, Af, bf, cf, yf, gf, B, H, S, P, N, Q, st, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

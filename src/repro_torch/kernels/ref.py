@@ -45,40 +45,39 @@ def flash_attention_ref(
 
 
 @torch.no_grad()
-def ssd_sequential(x, dt, A, Bm, Cm, *, init_state=None):
+def ssd_sequential(x, dt, A, Bm, Cm, *, init_state=None, acc=torch.float32):
     """Mamba-2 ground truth, one step at a time: ``h_t = exp(dt_t A) h_{t-1}
     + dt_t B_t x_t``, ``y_t = C_t . h_t``. x (B, S, H, P), dt (B, S, H), A (H,),
-    B/C (B, S, N); returns (y in x's dtype, final state (B, H, N, P) f32)."""
+    B/C (B, S, N); returns (y in x's dtype, final state (B, H, N, P) in
+    ``acc``, the dtype every step computes in)."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
-    f32 = torch.float32
-    h = torch.zeros((B, H, N, P), dtype=f32, device=x.device) if init_state is None \
-        else init_state.to(f32)
+    h = torch.zeros((B, H, N, P), dtype=acc, device=x.device) if init_state is None \
+        else init_state.to(acc)
     ys = []
     for t in range(S):
-        xt, dtt = x[:, t].to(f32), dt[:, t].to(f32)
-        bt, ct = Bm[:, t].to(f32), Cm[:, t].to(f32)
-        a = torch.exp(dtt * A)  # (B, H)
+        xt, dtt = x[:, t].to(acc), dt[:, t].to(acc)
+        bt, ct = Bm[:, t].to(acc), Cm[:, t].to(acc)
+        a = torch.exp(dtt * A.to(acc))  # (B, H)
         h = h * a[:, :, None, None] + torch.einsum("bh,bn,bhp->bhnp", dtt, bt, xt)
         ys.append(torch.einsum("bn,bhnp->bhp", ct, h))
     return torch.stack(ys, dim=1).to(x.dtype), h
 
 
 @torch.no_grad()
-def rwkv6_sequential(r, k, v, logw, u, *, init_state=None):
+def rwkv6_sequential(r, k, v, logw, u, *, init_state=None, acc=torch.float32):
     """RWKV-6 ground truth, one step at a time: ``y_t = r_t . (S_{t-1} +
     diag(u) k_t v_t^T)``, ``S_t = diag(exp(logw_t)) S_{t-1} + k_t v_t^T``.
     r, k, v, logw (B, S, H, P), u (H, P); returns (y in r's dtype, final state
-    (B, H, P, P) f32)."""
+    (B, H, P, P) in ``acc``, the dtype every step computes in)."""
     B, S, H, P = r.shape
-    f32 = torch.float32
-    s = torch.zeros((B, H, P, P), dtype=f32, device=r.device) if init_state is None \
-        else init_state.to(f32)
+    s = torch.zeros((B, H, P, P), dtype=acc, device=r.device) if init_state is None \
+        else init_state.to(acc)
     ys = []
     for t in range(S):
-        rt, kt, vt, wt = (a[:, t].to(f32) for a in (r, k, v, logw))
+        rt, kt, vt, wt = (a[:, t].to(acc) for a in (r, k, v, logw))
         kv = torch.einsum("bhp,bhq->bhpq", kt, vt)
-        ys.append(torch.einsum("bhp,bhpq->bhq", rt, s + u.to(f32)[None, :, :, None] * kv))
+        ys.append(torch.einsum("bhp,bhpq->bhq", rt, s + u.to(acc)[None, :, :, None] * kv))
         s = s * torch.exp(wt)[..., None] + kv
     return torch.stack(ys, dim=1).to(r.dtype), s
 

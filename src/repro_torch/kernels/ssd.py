@@ -16,10 +16,8 @@ kernels do not take:
   tensor cores (``mma.sync``, f32 accumulators, the state f32 across
   chunks), the next chunk's loads by ``cp.async`` behind the current one;
 * f32 -> ``csrc/ssd_scan.cu``: exact f32 FMAs on the CUDA cores in SGEMM
-  register tiles; ``C B^T`` once per (b, chunk) by a grid of its own, and a
-  block per (b, h, segment of the sequence, :func:`block_cols` value
-  columns), the segments' states passed along between grids
-  (:func:`segment_chunks` plans the segments).
+  register tiles; ``C B^T`` once per (b, chunk) by a grid of its own, then a
+  block per (b, h, :func:`block_cols` value columns) that walks every chunk.
 
 Both take any chunk length ``1 <= Q <= 128`` that divides S, as the JAX twin
 does: a chunk runs in the kernel's tile instance of the smallest of
@@ -42,19 +40,13 @@ import torch
 from . import _build
 
 __all__ = [
-    "CHUNKS", "block_cols", "chunk_tile", "empty_in_layout", "segment_chunks", "ssd_chunked",
+    "CHUNKS", "block_cols", "chunk_tile", "empty_in_layout", "ssd_chunked",
     "ssd_scan_f32", "ssd_scan_hsd", "ssd_scan_mma", "ssd_scan_plain",
 ]
 
 CHUNKS = (16, 32, 64, 128)  # the kernels' tile instances, in rows
 MAX_STATE = 64  # N: both kernels pad the state's rows to 64
 DTYPES = (torch.bfloat16, torch.float32)
-# blocks the f32 kernel aims to run at once: one an SM of the H100's 132 (its
-# y pass takes 175 KB of shared memory at chunk 64). The sequence is cut into
-# as many segments as fit (B * H * P / block_cols(P) blocks a segment), each
-# at least MIN_SEGMENT_CHUNKS chunks long.
-TARGET_BLOCKS = 132
-MIN_SEGMENT_CHUNKS = 16
 
 
 @torch.no_grad()
@@ -142,18 +134,6 @@ def block_cols(P: int) -> int:
     return 64 if P % 64 == 0 else 16
 
 
-def segment_chunks(B: int, H: int, S: int, P: int, Q: int) -> int:
-    """Chunks of one segment of the f32 kernel's sequence split: as many
-    segments as :data:`TARGET_BLOCKS` blocks hold (a block per (b, h,
-    segment, :func:`block_cols` value columns)), none shorter than
-    :data:`MIN_SEGMENT_CHUNKS` chunks. A sequence of one segment runs the y
-    grid alone."""
-    nchunks = S // Q
-    per_segment = B * H * (P // block_cols(P))
-    nseg = max(1, min(TARGET_BLOCKS // per_segment, nchunks // MIN_SEGMENT_CHUNKS))
-    return -(-nchunks // nseg)
-
-
 def check_operand(
     name: str, t: torch.Tensor, device, dtype, shape: tuple, *, dense_last: bool = True
 ) -> None:
@@ -207,29 +187,20 @@ def ssd_scan_f32(x, dt, A, Bm, Cm, y, Q: int) -> None:
     """Launch ``csrc/ssd_scan.cu`` on checked f32 CUDA tensors, writing
     ``y``, with a chunk of ``Q`` rows in its :func:`chunk_tile` instance;
     counts one launch a call. The call runs ``C B^T`` of every (b, chunk)
-    into a workspace, then y; a sequence of more than one segment
-    (:func:`segment_chunks`) runs the segments' end states and their passing
-    in between. Rows of x, B and C that are 16-byte aligned, with N a
-    multiple of 4, load by 16-byte ``cp.async``; any other strided view loads
-    element by element."""
+    into a workspace, then y, a block per (b, h, :func:`block_cols` value
+    columns). Rows of x, B and C that are 16-byte aligned, with N a multiple
+    of 4, load by 16-byte ``cp.async``; any other strided view loads element
+    by element."""
     B, H, S, P = x.shape
     N = Bm.shape[-1]
-    nchunks = S // Q
-    seg = segment_chunks(B, H, S, P, Q)
-    nseg = -(-nchunks // seg)
-    gram = torch.empty((B, nchunks, Q, -(-Q // 4) * 4), dtype=torch.float32, device=x.device)
-    state = decay = None
-    if nseg > 1:
-        state = torch.empty((B, H, nseg, N, P), dtype=torch.float32, device=x.device)
-        decay = torch.empty((B, H, nseg), dtype=torch.float32, device=x.device)
+    gram = torch.empty((B, S // Q, Q, -(-Q // 4) * 4), dtype=torch.float32, device=x.device)
     vec = N % 4 == 0 and rows_16b(x, 3) and rows_16b(Bm, 2) and rows_16b(Cm, 2)
-    fn = _build.launcher("ssd_scan", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+    fn = _build.launcher("ssd_scan", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                 y.data_ptr(), gram.data_ptr(), None if state is None else state.data_ptr(),
-                 None if decay is None else decay.data_ptr(), B, H, S, P, N, Q, chunk_tile(Q),
-                 block_cols(P), seg, _strides(x, dt, Bm, Cm, y), int(vec),
+                 y.data_ptr(), gram.data_ptr(), B, H, S, P, N, Q, chunk_tile(Q), block_cols(P),
+                 _strides(x, dt, Bm, Cm, y), int(vec),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")

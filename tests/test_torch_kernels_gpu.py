@@ -518,46 +518,54 @@ def test_ssd_kernels_take_odd_chunks(case, dtype):
     assert ref.row_limit_ratio(got, seq, *SCAN_TOL[dtype]) <= 1.0
 
 
-# (family, case, segments): one segment, segments of two chunks, and a shape
-# whose own plan cuts the sequence (zamba2-7b's and rwkv6-3b's heads keep one
-# segment at S=4096)
-F32_SEGMENT_CASES = [
-    ("ssd", (1, 512, 2, 64, 64, 64), 1), ("ssd", (1, 512, 2, 64, 64, 64), 2),
-    ("ssd", (2, 384, 3, 32, 16, 48), 2), ("ssd", (1, 2048, 2, 64, 64, 64), None),
-    ("rwkv", (1, 256, 2, 64, 16), 1), ("rwkv", (2, 128, 3, 48, 16), 2),
-    ("rwkv", (1, 160, 2, 64, 5), 2), ("rwkv", (1, 1024, 2, 64, 16), None),
-]
+# (case, segments): one segment, segments of two chunks, and a shape whose own
+# plan cuts the sequence (rwkv6-3b's heads keep one segment at S=4096)
+F32_SEGMENT_CASES = [((1, 256, 2, 64, 16), 1), ((2, 128, 3, 48, 16), 2), ((1, 160, 2, 64, 5), 2),
+                     ((1, 1024, 2, 64, 16), None)]
 
 
-@pytest.mark.parametrize("family, case, segments", F32_SEGMENT_CASES)
-def test_f32_scan_kernels_across_segments(monkeypatch, family, case, segments):
-    """The f32 SSD and RWKV-6 kernels with the sequence in one segment, in
-    segments of two chunks (end states, passing, y), and at a shape whose own
-    plan makes several: against the chunked plain version and the sequential
-    oracle at f32 tolerance."""
+@pytest.mark.parametrize("case, segments", F32_SEGMENT_CASES)
+def test_f32_scan_kernels_across_segments(monkeypatch, case, segments):
+    """The f32 RWKV-6 kernel with the sequence in one segment, in segments of
+    two chunks (end states, passing, y), and at a shape whose own plan makes
+    several: against the chunked plain version and the sequential oracle at
+    f32 tolerance."""
     _need_card()
     chunk = case[-1]
-    module = ssd if family == "ssd" else rw
     nchunks = case[1] // chunk
     if segments is not None:
         seg_len = nchunks if segments == 1 else 2
-        monkeypatch.setattr(module, "segment_chunks", lambda *a: seg_len)
+        monkeypatch.setattr(rw, "segment_chunks", lambda *a: seg_len)
     else:
         B, S, H, P = case[:4]
-        assert module.segment_chunks(B, H, S, P, chunk) < nchunks  # the plan cuts it
-    if family == "ssd":
-        args = _ssd_args(case, torch.float32, seed=len(case))
-        got = ops.ssd_scan(*args, chunk=chunk)
-        want, _ = ssd.ssd_chunked(*args, chunk=chunk)
-        seq, _ = ref.ssd_sequential(*args)
-    else:
-        args = _rwkv_args(case, torch.float32, seed=len(case))
-        got = ops.rwkv6_scan(*args, chunk=chunk)
-        want, _ = rw.rwkv6_chunked(*args, chunk=chunk)
-        seq, _ = ref.rwkv6_sequential(*args)
+        assert rw.segment_chunks(B, H, S, P, chunk) < nchunks  # the plan cuts it
+    args = _rwkv_args(case, torch.float32, seed=len(case))
+    got = ops.rwkv6_scan(*args, chunk=chunk)
+    want, _ = rw.rwkv6_chunked(*args, chunk=chunk)
+    seq, _ = ref.rwkv6_sequential(*args)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
     assert ref.row_limit_ratio(got, want, *SCAN_TOL[torch.float32]) <= 1.0
+    assert ref.row_limit_ratio(got, seq, *SCAN_TOL[torch.float32]) <= 1.0
+
+
+@pytest.mark.parametrize("case", [(1, 512, 2, 64, 64, 64), (2, 384, 3, 32, 16, 48),
+                                  (1, 2048, 2, 64, 64, 64), (1, 4096, 4, 128, 64, 128)])
+def test_ssd_f32_kernel_long_sequences(case):
+    """The f32 SSD kernel walking many chunks in one block (8 to 64), at one
+    and two cp.async stages (chunk 128 takes one): one launch, against the
+    chunked plain version and the sequential oracle at f32 tolerance."""
+    _need_card()
+    chunk = case[-1]
+    args = _ssd_args(case, torch.float32, seed=len(case))
+    before = ssd.ssd_scan_f32.launches
+    got = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_f32.launches == before + 1
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    want, _ = ssd.ssd_chunked(*args, chunk=chunk)
+    assert ref.row_limit_ratio(got, want, *SCAN_TOL[torch.float32]) <= 1.0
+    seq, _ = ref.ssd_sequential(*args)
     assert ref.row_limit_ratio(got, seq, *SCAN_TOL[torch.float32]) <= 1.0
 
 

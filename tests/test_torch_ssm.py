@@ -8,7 +8,8 @@ the model passes for short prompts. The kernels' decompositions are emulated
 here and held to the same references: the bf16 RWKV-6 kernel's (its bf16
 hi + lo rounding points and its sequence split, also against the JAX model's
 logits), and the f32 SSD and RWKV-6 kernels' (the SSD's C B^T once per
-(b, chunk), both sequence splits). The mixers run from the same parameters
+(b, chunk) and its chunks padded to their tile, the RWKV-6 sequence split).
+The mixers run from the same parameters
 (the JAX init carried over)."""
 import dataclasses
 import sys
@@ -314,62 +315,55 @@ def test_rwkv6_segment_plan_counts_the_kernels_warps(P):
     assert trw.segment_chunks(B, H, 256, P, Q) == 256 // Q  # one segment: a single grid
 
 
-def ssd_f32_emulation(x, dt, A, Bm, Cm, *, chunk=64, segment_chunks=None):
+def ssd_f32_emulation(x, dt, A, Bm, Cm, *, chunk=64, padded=True):
     """The f32 SSD kernel's decomposition (``csrc/ssd_scan.cu``) in the model
-    layout ``(B, S, H, P)``, all in f32: G = C B^T once per (b, chunk), shared
-    by the heads (its first grid); per head W = mask(G exp(cum_i - cum_j)
-    dt_j) and B o w with w_j = exp(cum_q - cum_j) dt_j; the sequence cut into
-    segments of ``segment_chunks`` chunks (the port's plan when None), whose
-    end states run from zero, are passed along (``exp`` of the summed log
-    decay), and enter each segment's y = exp(cum) (C S) + W x."""
+    layout ``(B, S, H, P)``, all in f32: with ``padded``, each chunk of Q rows
+    in its tile of ``ssd.chunk_tile(Q)`` rows whose padding rows are zero
+    (x = B = C = dt = 0), as the kernel holds it; G = C B^T once per
+    (b, chunk), shared by the heads (its first grid); per head W = mask(G
+    exp(cum_i - cum_j) dt_j) and B o w with w_j = exp(cum_last - cum_j) dt_j;
+    the state carried across every chunk from zero; y = exp(cum) (C S) + W x
+    on the chunk's own rows."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
     nc = S // Q
+    T = tssd.chunk_tile(Q) if padded else Q
     f32 = torch.float32
-    xc = x.to(f32).reshape(B, nc, Q, H, P)
-    dtc = dt.to(f32).reshape(B, nc, Q, H)
-    Bc, Cc = (m.to(f32).reshape(B, nc, Q, N) for m in (Bm, Cm))
+
+    def tiles(t):  # (B, S, ...) -> (B, nc, T, ...), rows Q..T-1 zero
+        t = t.to(f32).reshape(B, nc, Q, *t.shape[2:])
+        return torch.cat([t, torch.zeros((B, nc, T - Q, *t.shape[3:]), dtype=f32)], 2)
+
+    xc, dtc, Bc, Cc = tiles(x), tiles(dt), tiles(Bm), tiles(Cm)
     G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # once per (b, chunk)
-    cum = torch.cumsum(dtc * A.to(f32), dim=2)  # (B, nc, Q, H)
-    ctot = cum[:, :, -1]  # (B, nc, H)
-    i = torch.arange(Q)
+    cum = torch.cumsum(dtc * A.to(f32), dim=2)  # (B, nc, T, H)
+    ctot = cum[:, :, -1]  # (B, nc, H): the padding rows add no decay
+    i = torch.arange(T)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # cum_i - cum_j
     W = torch.where((i[None, :] <= i[:, None])[None, None, :, :, None],
                     G[..., None] * torch.exp(diff) * dtc[:, :, None, :, :], 0.0)
-    w = torch.exp(ctot[:, :, None, :] - cum) * dtc  # (B, nc, Q, H)
-    Bw = Bc[:, :, :, None, :] * w[..., None]  # (B, nc, Q, H, N)
+    w = torch.exp(ctot[:, :, None, :] - cum) * dtc  # (B, nc, T, H)
+    Bw = Bc[:, :, :, None, :] * w[..., None]  # (B, nc, T, H, N)
     right = torch.einsum("bcjhn,bcjhp->bchnp", Bw, xc)
     dec = torch.exp(ctot)[..., None, None]  # (B, nc, H, 1, 1)
-    seg = segment_chunks or tssd.segment_chunks(B, H, S, P, Q)
-    bounds = [(c, min(c + seg, nc)) for c in range(0, nc, seg)]
-    state, entering = torch.zeros((B, H, N, P)), []
-    for c0, c1 in bounds:  # the segments' end states from zero, passed along
-        entering.append(state)
-        s_end, ld = torch.zeros((B, H, N, P)), torch.zeros((B, H))
-        for c in range(c0, c1):
-            s_end = s_end * dec[:, c] + right[:, c]
-            ld = ld + ctot[:, c]
-        state = torch.exp(ld)[..., None, None] * state + s_end
-    ys = []
-    for (c0, c1), s_in in zip(bounds, entering):  # y from each segment's entering state
-        for c in range(c0, c1):
-            inter = torch.einsum("bin,bhnp->bihp", Cc[:, c], s_in) * torch.exp(cum[:, c])[..., None]
-            ys.append(inter + torch.einsum("bijh,bjhp->bihp", W[:, c], xc[:, c]))
-            s_in = s_in * dec[:, c] + right[:, c]
+    state, ys = torch.zeros((B, H, N, P)), []
+    for c in range(nc):
+        inter = torch.einsum("bin,bhnp->bihp", Cc[:, c], state) * torch.exp(cum[:, c])[..., None]
+        ys.append((inter + torch.einsum("bijh,bjhp->bihp", W[:, c], xc[:, c]))[:, :Q])
+        state = state * dec[:, c] + right[:, c]
     return torch.stack(ys, 1).reshape(B, S, H, P)
 
 
-@pytest.mark.parametrize("segments", [None, 2])
+@pytest.mark.parametrize("padded", [False, True])
 @pytest.mark.parametrize("case", SSD_CASES + SSD_ODD_CASES)
-def test_ssd_f32_decomposition_matches_pallas_and_sequential(case, segments):
+def test_ssd_f32_decomposition_matches_pallas_and_sequential(case, padded):
     """The f32 SSD kernel's decomposition against the Pallas kernel and the
-    sequential oracle at f32 tolerance, with the port's segment plan and
-    with segments of two chunks (end states, passing, y), at every chunk the
-    kernel takes."""
+    sequential oracle at f32 tolerance, at every chunk the kernel takes, with
+    each chunk as it is and padded with zero rows to its tile instance."""
     chunk = case[-1]
     (jx, tx), (jdt, tdt), (jA, tA), (jB, tB), (jC, tC) = _ssd_inputs(case, "float32")
-    got = ssd_f32_emulation(tx, tdt, tA, tB, tC, chunk=chunk, segment_chunks=segments)
+    got = ssd_f32_emulation(tx, tdt, tA, tB, tC, chunk=chunk, padded=padded)
     pallas = jops.ssd_scan(jx, jdt, jA, jB, jC, chunk=chunk, interpret=True)
     assert tref.row_limit_ratio(got, torch.from_numpy(np.array(pallas)), *F32_ROW) <= 1.0
     seq, _ = tref.ssd_sequential(tx, tdt, tA, tB, tC)
@@ -393,26 +387,21 @@ def test_rwkv6_f32_decomposition_matches_pallas_and_sequential(case, segments):
 
 
 @pytest.mark.parametrize("P", [16, 32, 48, 64, 128])
-def test_ssd_segment_plan_counts_the_kernels_blocks(P):
-    """The f32 SSD kernel's segment plan counts the blocks the launcher runs:
-    a block per block_cols(P) value columns (64 where they divide P, else 16),
-    so no more than TARGET_BLOCKS blocks run a segment set unless one segment
-    already exceeds it, zamba2-7b's heads (112 blocks a segment) keep one
-    segment, and few heads get enough segments of at least
-    MIN_SEGMENT_CHUNKS chunks."""
+def test_ssd_f32_column_blocks_match_pallas(P):
+    """The f32 SSD kernel's grid takes ``block_cols(P)`` value columns a block
+    (64 where they divide P, else 16): its decomposition run block by block
+    and put together matches the Pallas kernel and the sequential oracle at
+    f32 tolerance."""
     cols = tssd.block_cols(P)
     assert cols == (64 if P % 64 == 0 else 16) and P % cols == 0
-    shapes = [(1, 112, 32768, 64), (1, 112, 4096, 64), (1, 4, 32768, 64), (2, 3, 4096, 32)]
-    for B, H, S, Q in shapes:
-        nchunks = S // Q
-        seg = tssd.segment_chunks(B, H, S, P, Q)
-        nseg = -(-nchunks // seg)
-        per_segment = B * H * (P // cols)
-        assert nseg == 1 or (nseg * per_segment <= tssd.TARGET_BLOCKS
-                             and seg >= tssd.MIN_SEGMENT_CHUNKS)
-        if per_segment * 2 <= tssd.TARGET_BLOCKS and nchunks >= 2 * tssd.MIN_SEGMENT_CHUNKS:
-            assert nseg > 1
-    assert tssd.segment_chunks(1, 112, 4096, 64, 64) == 4096 // 64  # zamba2-7b: one segment
+    case = (1, 96, 2, P, 16, 32)
+    (jx, tx), (jdt, tdt), (jA, tA), (jB, tB), (jC, tC) = _ssd_inputs(case, "float32", seed=P)
+    got = torch.cat([ssd_f32_emulation(tx[..., p0:p0 + cols], tdt, tA, tB, tC, chunk=32)
+                     for p0 in range(0, P, cols)], -1)
+    pallas = jops.ssd_scan(jx, jdt, jA, jB, jC, chunk=32, interpret=True)
+    assert tref.row_limit_ratio(got, torch.from_numpy(np.array(pallas)), *F32_ROW) <= 1.0
+    seq, _ = tref.ssd_sequential(tx, tdt, tA, tB, tC)
+    assert tref.row_limit_ratio(got, seq, *F32_ROW) <= 1.0
 
 
 def test_ssd_chunk_tile_is_the_smallest_instance():
