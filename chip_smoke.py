@@ -29,7 +29,10 @@ Phases, in the order they run, each failing hard:
    window 512 and 0) and internlm2-1.8b's (H=16, KH=8, D=128), in both
    types, at the S=32768 shapes of the gemma3-1b prefill in bf16, and at
    zamba2-7b's shared attention (H=KH=32, D=112, global; S=4096 in both
-   types, S=32768 in bf16); then with ``causal=False`` (window 0 and > 0)
+   types, S=32768 in bf16), at MLA's head dims, v narrower than q and k, with
+   the scale D^-0.5 (minicpm3-4b: H=KH=40, D=96, Dv=64; deepseek-v2-lite-16b:
+   H=KH=16, D=192, Dv=128; S=4096 in both types, S=32768 in bf16); then with
+   ``causal=False`` (window 0 and > 0)
    and a scale other than D^-0.5, in both types, at small shapes and at
    internlm2-1.8b's S=4096. Kernel, plain version and
    ``scaled_dot_product_attention`` (the library yardstick, never on the
@@ -46,30 +49,43 @@ Phases, in the order they run, each failing hard:
    tolerances (rtol, and atol as a share of each output row's root mean
    square). Kernel and plain version are timed; no single PyTorch call
    computes a chunked scan.
-5. Prefill, for gemma3-1b (999,812,736 parameters), zamba2-7b (7,586,693,952)
-   and rwkv6-3b (2,863,516,160) in turn, each at full width and depth from
-   the port's seeded init and freed before the next: ``prefill`` at B=1,
-   S=32768 (the prefill_32k length): time, tokens/s, peak memory, and
-   exactly one launch per layer of each kernel's kind (gemma3-1b: 26 bf16
-   flash; zamba2-7b: 68 bf16 SSD and 13 bf16 flash; rwkv6-3b: 32 bf16
-   RWKV-6; the f32 checks of each model the same counts, on the f32
-   kernels). At
-   S=4096 the
-   last-position logits through the kernels and through their plain versions
-   must agree within the model's limit (a share of the largest logit, 2-4x
-   the gap read on the card) with the same top-1 token, and so must
-   zamba2-7b's at S=48, whose SSD chunk of 48 has no tile instance of its
-   own. A profiler window shows where the prefill's time goes. The f32
-   checks' kernel-path prefill at S=4096 is profiled once (the f32 scans'
-   grids a call, held to their plans) and timed warm with CUDA events.
+5. Prefill, for gemma3-1b (999,812,736 parameters), zamba2-7b (7,586,693,952),
+   rwkv6-3b (2,863,516,160), minicpm3-4b (4,261,902,848) and
+   deepseek-v2-lite-16b (15,706,484,224) in turn, each at full width and
+   depth from the port's seeded init and freed before the next: ``prefill``
+   at B=1, S=32768 (the prefill_32k length): time, tokens/s, peak memory,
+   the MoE aux (deepseek-v2-lite-16b; finite), and exactly one launch per
+   layer of each kernel's kind (gemma3-1b: 26 bf16 flash; zamba2-7b: 68 bf16
+   SSD and 13 bf16 flash; rwkv6-3b: 32 bf16 RWKV-6; minicpm3-4b: 62 bf16
+   flash; deepseek-v2-lite-16b: 27 bf16 flash; the f32 checks of each model
+   the same counts, on the f32 kernels, but at a cut depth, full width, for
+   two models (``F32_REPEATS``): deepseek-v2-lite-16b's f32 copy would not
+   fit beside its bf16 weights, so its f32 checks run its dense first layer
+   and 3 MoE layers (4 f32 flash); zamba2-7b's run 4 of its 13 groups and
+   its last 3 blocks (23 f32 SSD, 4 f32 flash) to keep the run's time). At
+   S=4096 the last-position logits through the kernels and through their plain
+   versions must agree within the model's limit (a share of the largest logit,
+   2-4x the gap read on the card) with the same top-1 token, and so must
+   zamba2-7b's at S=48, whose SSD chunk of 48 has no tile instance of its own.
+   In every such comparison of a MoE model the second run takes the first
+   run's expert choices (``Routing``: a rounding difference flips near-tied
+   top-k choices), and the share its own router would have made otherwise is
+   held to the model's limit. A profiler window shows where the prefill's time
+   goes. The f32 checks' kernel-path prefill at S=4096 is profiled once (the
+   f32 scans' grids a call, held to their plans) and timed warm with CUDA
+   events.
 6. Serving: ``ServingEngine`` on the same weights (gemma3-1b: 16 requests of
-   16-256 prompt tokens and 32 new ones, 8 slots, max_len 1024; zamba2-7b
-   and rwkv6-3b: 8 requests of 16-64 and 16 new, 4 slots, max_len 256, so
-   slots are recycled and the recurrent state reset): every request must
-   finish. One prompt's teacher-forced decode logits must match the
-   kernel-path ``forward`` within the model's limit, with the same top-1
-   token at all but at most one position. A profiler window over 24 ticks
-   shows the device's busy share.
+   16-256 prompt tokens and 32 new ones, 8 slots, max_len 1024; zamba2-7b and
+   rwkv6-3b: 8 requests of 16-64 and 16 new, 4 slots, max_len 256, so slots
+   are recycled and the recurrent state reset; minicpm3-4b and
+   deepseek-v2-lite-16b: 4 such requests, one a slot): every request must
+   finish. One
+   prompt's teacher-forced decode logits must match the kernel-path
+   ``forward`` within the model's limit, with the same top-1 token at all
+   but the model's allowance of positions (a MoE model at its drop-free
+   capacity for this check, as the JAX package's tests hold it: the forward
+   dispatches the prompt as one group, decode each token). A profiler
+   window over 24 ticks shows the device's busy share.
 7. Placement: ``place_job`` places ``examples/serve_cluster.py``'s five
    stage graphs on an 8x8 torus through the JRBA kernel and on the CPU:
    assignments, routes, bandwidths and spans must be identical.
@@ -98,12 +114,14 @@ it and read just after; a kernel a path is not expected to launch must show
 ``solver="cuda"`` (the placement, the scheduler, the single and batched
 replays, each fleet run) must have launched it, each on ``solver="sparse"``
 or the CPU must not have. Each model kernel's main path is the S=32768
-prefill of its model (bf16 flash attention: gemma3-1b's, 26 launches; bf16
+prefill of its model (bf16 flash attention: gemma3-1b's, 26 launches, and
+at MLA's head dims minicpm3-4b's, 62, and deepseek-v2-lite-16b's, 27; bf16
 SSD: zamba2-7b's, 68; bf16 RWKV-6: rwkv6-3b's, 32); the S=4096 prefills and
 ``forward`` launch them once per layer, the plain reference runs and the
 serving loops (whose decode is plain PyTorch) not at all. The f32 flash
 kernel's path is gemma3-1b's f32 prefill at S=4096 (26 launches), the f32
-SSD kernel's zamba2-7b's (68), the f32 RWKV-6 kernel's rwkv6-3b's (32).
+SSD kernel's zamba2-7b's at its f32 depth (23), the f32 RWKV-6 kernel's
+rwkv6-3b's (32).
 ``flash_attention_hsd.launches``, ``ssd_scan_hsd.launches`` and
 ``rwkv6_scan_hsd.launches`` each count their two kernels, and each must
 equal their sum on every path. A bf16 RWKV-6 call counts one launch however
@@ -122,6 +140,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import re
 import subprocess
@@ -302,14 +321,16 @@ def wgmma_evidence(ptxas: str) -> dict:
     dynamic shared memory of each instance's plan; fails unless the kernel
     runs on the tensor cores, loads by TMA and spills nothing."""
     counts = sass_counts("flash_attention_wgmma", ("HGMMA", "UTMALDG", "SYNCS"))
-    plans = {p.d_pad: p for p in map(fa.wgmma_plan, fa.HEAD_DIMS)}
+    plans = {(p.d_pad, p.dv_pad): p for p in (fa.wgmma_plan(*dims) for dims in fa.HEAD_DIMS)}
     instances = {}
     for e in ptxas_entries(ptxas, "flash_fwd_wgmma"):
-        d_pad, block_k, stages = map(int, re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E",
-                                                    e["entry"]).groups())
-        instances[f"d_pad={d_pad},block_k={block_k},stages={stages}"] = {
+        d_pad, dv_pad, block_k, stages = map(int, re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                                                            e["entry"]).groups())
+        plan = plans[d_pad, dv_pad]
+        assert (plan.block_k, plan.stages) == (block_k, stages), f"{e['entry']} is not {plan}"
+        instances[f"d_pad={d_pad},dv_pad={dv_pad},block_k={block_k},stages={stages}"] = {
             "registers": e["registers"], "spill_stores": e["spill_stores"],
-            "spill_loads": e["spill_loads"], "dynamic_smem_bytes": plans[d_pad].smem_bytes,
+            "spill_loads": e["spill_loads"], "dynamic_smem_bytes": plan.smem_bytes,
         }
     out = {"sass": counts, "ptxas": instances}
     log(f"[build] flash_attention_wgmma evidence: {json.dumps(out)}")
@@ -362,13 +383,14 @@ def rwkv6_mma_evidence(ptxas: str) -> dict:
 def flash_f32_evidence(ptxas: str) -> dict:
     """The f32 flash library's SASS counts (FMAs, cp.async, shared loads,
     shuffles, barriers, local memory) and ptxas's registers and spills for
-    each (D, rows a thread, kv tile) instance; fails unless it loads by
+    each (D, Dv, rows a thread, kv tile) instance; fails unless it loads by
     cp.async and spills nothing."""
     counts = sass_counts("flash_attention", ("FFMA", "LDGSTS", "LDS", "SHFL", "BAR", "LDL", "STL"))
     instances = {}
     for e in ptxas_entries(ptxas, "flash_fwd"):
-        d, rm, bk, rg = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", e["entry"]).groups()
-        instances[f"D={d},RM={rm},BK={bk},RG={rg}"] = {
+        d, dv, rm, bk, rg = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                                      e["entry"]).groups()
+        instances[f"D={d},DV={dv},RM={rm},BK={bk},RG={rg}"] = {
             k: e[k] for k in ("registers", "spill_stores", "spill_loads", "stack_frame")}
     out = {"sass": counts, "ptxas": instances}
     log(f"[build] flash_attention evidence: {json.dumps(out)}")
@@ -456,6 +478,14 @@ PREFILL_SHAPES = [(1, 32768, 4, 1, 256, 512), (1, 32768, 4, 1, 256, 0)]
 # zamba2-7b's shared attention: 32/32 heads of D=112, global, at S=4096 (bf16
 # and f32) and at the S=32768 of its prefill (bf16)
 ZAMBA_FLASH_SHAPES = [(1, 4096, 32, 32, 112, 0), (1, 32768, 32, 32, 112, 0)]
+# MLA's prefill attention, (B, S, H, KH, D, window, Dv): minicpm3-4b (40
+# heads, D = 64 + 32, Dv = 64) and deepseek-v2-lite-16b (16 heads, D = 128 +
+# 64, Dv = 128), global and causal with the scale D**-0.5; at S=4096 in both
+# types and at the S=32768 of their prefills in bf16
+MLA_FLASH_SHAPES = {
+    "minicpm3-4b": [(1, 4096, 40, 40, 96, 0, 64), (1, 32768, 40, 40, 96, 0, 64)],
+    "deepseek-v2-lite-16b": [(1, 4096, 16, 16, 192, 0, 128), (1, 32768, 16, 16, 192, 0, 128)],
+}
 # tests/test_kernels.py's tolerances (rtol, and atol as a share of each
 # output row's root mean square): at S=32768 a global row's outputs are ~0.01
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
@@ -489,12 +519,15 @@ def library_attention(q, k, v, window: int, causal: bool = True, scale: float | 
 
 def flash_case(shape, dtype, device, reps: int, causal: bool = True,
                scale: float | None = None) -> dict:
-    B, S, H, KH, D, window = shape
+    """``shape`` is (B, S, H, KH, D, window), with v's head dim Dv as a
+    seventh entry where it is not D."""
+    B, S, H, KH, D, window = shape[:6]
+    Dv = shape[6] if len(shape) > 6 else D
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + sum(shape))
     q, k, v = (
         torch.randn(s, generator=gen, device=device).to(dtype)
-        for s in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D))
+        for s in ((B, H, S, D), (B, KH, S, D), (B, KH, S, Dv))
     )
     chunk = 1024 if S % 1024 == 0 else S
     kw = dict(causal=causal, window=window, scale=scale)
@@ -516,13 +549,14 @@ def flash_case(shape, dtype, device, reps: int, causal: bool = True,
     )
     library_ms = time_call(library_attention, (q, k, v, window, causal, scale), {},
                            reps=max(1, reps // 3))
-    # bound: q, k, v read once, o written once; 4*D flops per live (q, k) pair
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    flops = 4 * D * live_pairs(S, window, causal) * B * H
+    # bound: q, k, v read once, o written once; 2*D flops per live (q, k)
+    # pair for Q.K^T and 2*Dv for P.V
+    nbytes = (q.numel() + k.numel() + v.numel() + B * H * S * Dv) * q.element_size()
+    flops = (2 * D + 2 * Dv) * live_pairs(S, window, causal) * B * H
     bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     out = {
         "kernel": "flash_attention_wgmma" if dtype == torch.bfloat16 else "flash_attention",
-        "shape": {"B": B, "S": S, "H": H, "KH": KH, "D": D, "window": window,
+        "shape": {"B": B, "S": S, "H": H, "KH": KH, "D": D, "Dv": Dv, "window": window,
                   "causal": causal, "scale": scale},
         "dtype": str(dtype).replace("torch.", ""),
         "max_abs_err": err,
@@ -550,6 +584,10 @@ def flash_phase(device) -> list[dict]:
     short, full = ZAMBA_FLASH_SHAPES
     out.append(flash_case(short, torch.float32, device, reps=5))
     out += [flash_case(s, torch.bfloat16, device, reps=3) for s in (short, full)]
+    for short, full in MLA_FLASH_SHAPES.values():  # MLA's scale: D**-0.5 of q.k's head
+        out.append(flash_case(short, torch.float32, device, reps=5, scale=short[4] ** -0.5))
+        out += [flash_case(s, torch.bfloat16, device, reps=3, scale=s[4] ** -0.5)
+                for s in (short, full)]
     for shape, causal, scale in FLASH_KEYWORD_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             out.append(flash_case(shape, dtype, device, reps=5, causal=causal, scale=scale))
@@ -697,7 +735,16 @@ FORWARD_LAUNCHES = {
     "gemma3-1b": {"flash_attention_wgmma": 26},
     "zamba2-7b": {"ssd_scan_mma": 68, "flash_attention_wgmma": 13},
     "rwkv6-3b": {"rwkv6_scan_mma": 32},
+    "minicpm3-4b": {"flash_attention_wgmma": 62},  # MLA, (D, Dv) = (96, 64)
+    "deepseek-v2-lite-16b": {"flash_attention_wgmma": 27},  # MLA, (192, 128); 26 MoE layers
 }
+# the f32 checks' depth, pattern repeats kept at full width, where the full
+# depth does not fit or does not fit the run's time: deepseek-v2-lite-16b's
+# f32 copy (63 GB) does not fit beside its bf16 weights (31 GB), so it keeps
+# its dense first layer and 3 of its 26 MoE layers; zamba2-7b keeps 4 of its
+# 13 groups (5 Mamba-2 blocks and the shared attention each) and its 3 last
+# Mamba-2 blocks, 27 of 81 layers, to keep the run under 700 s (PERF.md 4)
+F32_REPEATS = {"zamba2-7b": 4, "deepseek-v2-lite-16b": 3}
 # at f32 the same layers launch the f32 flash, SSD and RWKV-6 kernels instead
 F32_KERNEL = {"flash_attention_wgmma": "flash_attention", "ssd_scan_mma": "ssd_scan",
               "rwkv6_scan_mma": "rwkv6_scan"}
@@ -705,6 +752,8 @@ F32_LAUNCHES = {
     arch: {F32_KERNEL.get(k, k): n for k, n in kinds.items()}
     for arch, kinds in FORWARD_LAUNCHES.items()
 }
+F32_LAUNCHES["zamba2-7b"] = {"ssd_scan": 5 * 4 + 3, "flash_attention": 4}
+F32_LAUNCHES["deepseek-v2-lite-16b"] = {"flash_attention": 1 + 3}
 # requests, slots, max_len, prompt lengths, new tokens; an SSM model's first
 # prompt is the prefill prompt's first DECODE_LEN tokens (a chunk length its
 # kernels take), the prompt of its decode-vs-forward checks
@@ -712,6 +761,10 @@ SERVING = {
     "gemma3-1b": dict(requests=16, slots=8, max_len=1024, prompt=(16, 256), new=32, first=False),
     "zamba2-7b": dict(requests=8, slots=4, max_len=256, prompt=(16, 64), new=16, first=True),
     "rwkv6-3b": dict(requests=8, slots=4, max_len=256, prompt=(16, 64), new=16, first=True),
+    # 4 requests, one a slot, to keep the run under 700 s (PERF.md 4)
+    "minicpm3-4b": dict(requests=4, slots=4, max_len=256, prompt=(16, 64), new=16, first=False),
+    "deepseek-v2-lite-16b": dict(requests=4, slots=4, max_len=256, prompt=(16, 64), new=16,
+                                 first=False),
 }
 # Logit limits, each a share of the largest logit and 2-4x the gap read on
 # the H100 (PERF.md section 2; the noise of bf16 hidden states is absolute in
@@ -723,16 +776,98 @@ SERVING = {
 # read (one for gemma3-1b, as in PR 12). The SSM models' bf16 drift is the
 # rounding of their recurrences amplified by their per-head norms: their
 # decode is as far from the plain forward as from the kernel one, and at f32
-# both gaps are under 1e-5 (rwkv6-3b's decode 3.2e-4).
+# both gaps are under 1e-5 (rwkv6-3b's decode 3.2e-4). A MoE model's two
+# runs of a check take the same expert choices (Routing); "route_flips" is
+# the share of choices its second run's own router may make otherwise
+# (deepseek-v2-lite-16b's random routers are near-uniform: 8.7% at bf16,
+# none at f32).
 LIMITS = {
     "gemma3-1b": dict(prefill=1e-3, decode=1e-3, flips=1, prefill_f32=4e-7, decode_f32=3e-6),
     "zamba2-7b": dict(prefill=0.12, decode=0.13, flips=10, prefill_f32=3e-5, decode_f32=3e-5),
     "rwkv6-3b": dict(prefill=0.1, decode=0.3, flips=22, prefill_f32=2e-5, decode_f32=1e-3),
+    "minicpm3-4b": dict(prefill=0.08, decode=0.08, flips=1, prefill_f32=6e-6, decode_f32=5e-6),
+    "deepseek-v2-lite-16b": dict(prefill=0.06, decode=0.06, flips=2, prefill_f32=3e-6,
+                                 decode_f32=6e-6, route_flips=0.2),
 }
 DECODE_LEN = 64  # the f32 decode-vs-forward prompt
 # zamba2-7b's short prefill check: a prompt under 64 tokens whose SSD chunk
 # (min(64, pick_chunk(S)) = 48) has no tile instance of its own
 SHORT_LEN = 48
+
+
+def drop_free(cfg):
+    """``cfg`` with, for a MoE model, the capacity at which no choice is
+    dropped (E / top_k), as tests/test_arch_smoke.py sets it for decode
+    against forward: the forward dispatches a sequence a group and decode the
+    slot batch, so at the configured capacity the two drop different
+    choices."""
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+class Routing:
+    """A MoE model's expert choices, recorded from one run and replayed in
+    another, so that the two runs of a comparison route every token alike: a
+    rounding difference in a hidden state flips the top-k of near-tied
+    experts, and a flipped choice moves a token's whole expert output (the
+    CPU tests hold the port to the JAX package at bf16 the same way).
+    ``flips`` counts the choices in which the replaying run's own router
+    differed. For a model without MoE blocks both contexts do nothing."""
+
+    def __init__(self, cfg):
+        self.on = cfg.n_experts > 0
+        self.choices: list = []
+        self.flips = self.total = 0
+
+    @contextlib.contextmanager
+    def _topk(self, fn):
+        if not self.on:
+            yield
+            return
+        saved = torch.topk
+        torch.topk = functools.partial(fn, saved)
+        try:
+            yield
+        finally:
+            torch.topk = saved
+
+    def record(self):
+        def recording(topk, probs, k, dim=-1):
+            out = topk(probs, k, dim=dim)
+            self.choices.append(out[1])
+            return out
+
+        self.choices = []
+        return self._topk(recording)
+
+    def replay(self, per_token: bool = False):
+        """Each MoE block takes the recorded choices in call order; with
+        ``per_token`` a decode step's block takes its token's choices from
+        the recorded forward (call c: MoE layer c % L, token c // L)."""
+        calls = itertools.count()
+
+        def replaying(topk, probs, k, dim=-1):
+            c, L = next(calls), len(self.choices)
+            ref = self.choices[c % L]
+            if per_token:
+                ref = ref[:, c // L : c // L + 1]
+            own = topk(probs, k, dim=dim)[1]
+            self.flips += int((own != ref).sum())
+            self.total += ref.numel()
+            return probs.gather(-1, ref), ref
+
+        return self._topk(replaying)
+
+    def check(self, label: str, limit: float) -> None:
+        """The share of replayed choices the run's own router made otherwise,
+        at most ``limit``."""
+        if not self.on:
+            return
+        share = self.flips / self.total
+        log(f"[routing] {label}: {self.flips} of {self.total} expert choices differ ({share:.3g}, "
+            f"limit {limit})")
+        assert share <= limit, f"{label}: {share} of the expert choices differ"
 
 
 @contextlib.contextmanager
@@ -741,8 +876,9 @@ def plain_kernels():
     versions (on the card) instead of the kernels, for a reference run."""
     saved = model_attention.flash_attention, ops.ssd_scan, ops.rwkv6_scan
 
-    def attention(q, k, v, *, causal=True, window=0, chunk=1024):
-        return fa.blockwise_attention(q, k, v, window=window, chunk=chunk, causal=causal)
+    def attention(q, k, v, *, causal=True, window=0, scale=None, chunk=1024):
+        return fa.blockwise_attention(q, k, v, window=window, chunk=chunk, scale=scale,
+                                      causal=causal)
 
     model_attention.flash_attention = attention
     ops.ssd_scan, ops.rwkv6_scan = SCANS["ssd_scan"][1], SCANS["rwkv6_scan"][1]
@@ -795,6 +931,14 @@ def profile_window(label: str, card: str, fn, *args, grids: dict | None = None) 
     return out
 
 
+def gap_share(label: str, got, want) -> float:
+    """The largest logit difference as a share of the largest logit; read,
+    not held to a limit."""
+    share = float((got - want).abs().max()) / float(want.abs().max())
+    log(f"[{label}] {json.dumps({'gap_share': share})}")
+    return share
+
+
 def logits_close(label: str, got, want, atol: float, min_top1: float) -> dict:
     """Logits within ``atol`` of the largest logit, with the same top-1 token
     at a share of at least ``min_top1`` of the positions."""
@@ -817,7 +961,8 @@ def prompt_tokens(cfg, device) -> torch.Tensor:
 
 
 def prefill_phase(arch: str, device, card) -> tuple:
-    """Returns the model, its weights and each kernel's launches by path."""
+    """Returns the model, its weights, each kernel's launches by path and
+    the plain path's logits at S=4096."""
     cfg = get_config(arch)
     expect = FORWARD_LAUNCHES[arch]
     t0 = time.perf_counter()
@@ -832,12 +977,17 @@ def prefill_phase(arch: str, device, card) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    (logits, _), counts = counted_all(
+    (logits, aux), counts = counted_all(
         f"{arch} prefill S={PREFILL_LEN} (main path)", expect, prefill, params, cfg, tokens
     )
     seconds = time.perf_counter() - t0
     assert tuple(logits.shape) == (1, 1, cfg.vocab) and logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all()), f"{arch}: non-finite prefill logits"
+    if cfg.n_experts:  # the MoE blocks' load-balance metrics, summed over the layers
+        aux = {k: float(v) for k, v in aux.items()}
+        log(f"[prefill] {arch} aux: {json.dumps(aux)}")
+        assert sorted(aux) == ["moe_balance_loss", "moe_dropped_frac", "moe_router_zloss"]
+        assert all(np.isfinite(v) for v in aux.values()), f"{arch}: non-finite aux {aux}"
     stats = {
         "arch": arch,
         "seq": PREFILL_LEN,
@@ -848,14 +998,19 @@ def prefill_phase(arch: str, device, card) -> tuple:
     }
     log(f"[prefill] {json.dumps(stats)} [{card}]")
     short = tokens[:, :CHECK_LEN]
-    (k_logits, _), k_counts = counted_all(
-        f"{arch} prefill S={CHECK_LEN} (kernel)", expect, prefill, params, cfg, short
-    )
-    with plain_kernels():
+    routes = Routing(cfg)  # a MoE model's plain run takes the kernel run's choices
+    with routes.record():
+        (k_logits, _), k_counts = counted_all(
+            f"{arch} prefill S={CHECK_LEN} (kernel)", expect, prefill, params, cfg, short
+        )
+    with plain_kernels(), routes.replay():
         (p_logits, _), _ = counted_all(f"{arch} prefill S={CHECK_LEN} (plain)", {}, prefill,
                                        params, cfg, short)
+    routes.check(f"{arch} prefill S={CHECK_LEN} plain on the kernel's choices",
+                 LIMITS[arch].get("route_flips", 0.0))
     logits_close(f"{arch} prefill S={CHECK_LEN} kernel vs plain", k_logits, p_logits,
                  LIMITS[arch]["prefill"], min_top1=1.0)
+    plain_logits = p_logits
     short_counts = {}
     if "ssd_scan_mma" in expect:  # a chunk with no tile instance of its own
         tiny = tokens[:, :SHORT_LEN]
@@ -880,7 +1035,7 @@ def prefill_phase(arch: str, device, card) -> tuple:
                **({f"{arch}:prefill_{SHORT_LEN}": short_counts[name]} if short_counts else {})}
         for name in expect
     }
-    return cfg, params, by_path
+    return cfg, params, by_path, plain_logits
 
 
 def _tensors(tree):
@@ -935,11 +1090,17 @@ def serving_phase(arch: str, cfg, params, device, card) -> dict:
     # what ties the recurrent decode to the kernels
     toks = torch.tensor([requests[0].prompt], device=device)
     expect = FORWARD_LAUNCHES[arch]
-    (fwd, _), f_counts = counted_all(f"{arch} forward S={toks.shape[1]}", expect, forward,
-                                     params, cfg, toks)
+    check = drop_free(cfg)
+    routes = Routing(cfg)  # a MoE model's decode takes the forward's choices
+    with routes.record():
+        (fwd, _), f_counts = counted_all(f"{arch} forward S={toks.shape[1]}", expect, forward,
+                                         params, check, toks)
     n = toks.shape[1]
-    logits_close(f"{arch} decode vs forward", decode_logits(params, cfg, toks, device), fwd,
-                 LIMITS[arch]["decode"], min_top1=1 - LIMITS[arch]["flips"] / n)
+    with routes.replay(per_token=True):
+        dec = decode_logits(params, check, toks, device)
+    routes.check(f"{arch} decode on the forward's choices", LIMITS[arch].get("route_flips", 0.0))
+    logits_close(f"{arch} decode vs forward", dec, fwd, LIMITS[arch]["decode"],
+                 min_top1=1 - LIMITS[arch]["flips"] / n)
     # a window of steady serving: every slot busy, prefilling and decoding
     eng = ServingEngine(cfg, params, slots=spec["slots"], max_len=spec["max_len"], device=device)
     for r in requests[: spec["slots"]]:
@@ -1011,28 +1172,43 @@ def scan_rows_vs_f64(arch: str, p32, cfg32, toks) -> dict:
     return out
 
 
-def f32_phase(arch: str, cfg, params, device, card) -> tuple[dict, dict]:
+def f32_phase(arch: str, cfg, params, device, card, bf16_plain=None) -> tuple[dict, dict]:
     """The logit checks with the same weights upcast to f32: kernel path
     against plain path at S=4096, and on the first 64 tokens decode against
     the kernel-path forward, decode against the plain-path forward, and the
     two forwards against each other; then each f32 scan call of that
-    forward against its f64 oracle (``scan_rows_vs_f64``). What the bf16 checks show beyond these gaps is
-    the amplification of bf16 rounding, not the kernels. The kernel-path
-    prefill is then profiled once (the f32 scans' grids a call) and timed
-    warm with CUDA events. Returns each kernel's launches by path and the
-    prefill's record."""
+    forward against its f64 oracle (``scan_rows_vs_f64``). What the bf16
+    checks show beyond these gaps is the amplification of bf16 rounding, not
+    the kernels. The kernel-path prefill is then profiled once (the f32
+    scans' grids a call) and timed warm with CUDA events. A model in
+    F32_REPEATS runs these checks on its first groups only. ``bf16_plain``,
+    the bf16 plain path's logits at S=4096, is read against the f32 plain
+    path's: the gap bf16 rounding alone makes. Returns each kernel's
+    launches by path and the prefill's record."""
     cfg32 = dataclasses.replace(cfg, dtype="float32")
+    if arch in F32_REPEATS:  # the first groups only: the f32 copy of all does not fit
+        repeats = F32_REPEATS[arch]
+        cfg32 = dataclasses.replace(cfg32, n_pattern_repeats=repeats)
+        stack = dict(params["stack"], groups=params["stack"]["groups"][:repeats])
+        params = dict(params, stack=stack)
+        log(f"[f32] {arch}: {cfg32.n_layers} of {cfg.n_layers} layers, full width")
     p32 = tree_map(lambda t: t.float(), params)
     tokens = prompt_tokens(cfg, device)
     short = tokens[:, :CHECK_LEN]
     expect = F32_LAUNCHES[arch]
-    (k_logits, _), k_counts = counted_all(f"{arch} f32 prefill S={CHECK_LEN} (kernel)", expect,
-                                          prefill, p32, cfg32, short)
-    with plain_kernels():
+    routes = Routing(cfg)
+    with routes.record():
+        (k_logits, _), k_counts = counted_all(f"{arch} f32 prefill S={CHECK_LEN} (kernel)",
+                                              expect, prefill, p32, cfg32, short)
+    with plain_kernels(), routes.replay():
         (p_logits, _), _ = counted_all(f"{arch} f32 prefill S={CHECK_LEN} (plain)", {}, prefill,
                                        p32, cfg32, short)
+    routes.check(f"{arch} f32 prefill S={CHECK_LEN} plain on the kernel's choices",
+                 LIMITS[arch].get("route_flips", 0.0))
     logits_close(f"{arch} f32 prefill S={CHECK_LEN} kernel vs plain", k_logits, p_logits,
                  LIMITS[arch]["prefill_f32"], min_top1=1.0)
+    if bf16_plain is not None:  # bf16 rounding alone: the bf16 plain path against the f32 one
+        gap_share(f"{arch} bf16 plain vs f32 plain prefill S={CHECK_LEN}", bf16_plain, p_logits)
     calls = {name: COUNTERS[name].launches for name in GRID_KERNELS}
     prof = profile_window(f"{arch} f32 prefill S={CHECK_LEN}", card, prefill, p32, cfg32, short,
                           grids=GRID_KERNELS)
@@ -1041,21 +1217,27 @@ def f32_phase(arch: str, cfg, params, device, card) -> tuple[dict, dict]:
         if calls[name] and name in expect:
             GRIDS_PER_CALL[name] = prof["device_grids"][name] / calls[name]
             log(f"[profile] {name}: {prof['device_grids'][name]} grids in {calls[name]} calls")
-    stats = {"arch": arch, "dtype": "float32", "seq": CHECK_LEN,
+    stats = {"arch": arch, "dtype": "float32", "seq": CHECK_LEN, "layers": cfg32.n_layers,
              "ms": time_call(prefill, (p32, cfg32, short), {}, reps=2, warm=0)}
     stats["tokens_per_s"] = CHECK_LEN / stats["ms"] * 1e3
     log(f"[prefill] {json.dumps(stats)} [{card}]")
     toks = tokens[:, :DECODE_LEN]
-    (fwd, _), f_counts = counted_all(f"{arch} f32 forward S={DECODE_LEN}", expect, forward, p32,
-                                     cfg32, toks)
-    dec = decode_logits(p32, cfg32, toks, device)
+    cfg32 = drop_free(cfg32)  # decode against forward: as in the serving phase
+    routes = Routing(cfg)  # decode and the plain forward take the kernel forward's choices
+    with routes.record():
+        (fwd, _), f_counts = counted_all(f"{arch} f32 forward S={DECODE_LEN}", expect, forward,
+                                         p32, cfg32, toks)
+    with routes.replay(per_token=True):
+        dec = decode_logits(p32, cfg32, toks, device)
+    routes.check(f"{arch} f32 decode on the forward's choices",
+                 LIMITS[arch].get("route_flips", 0.0))
     logits_close(f"{arch} f32 decode vs forward", dec, fwd, LIMITS[arch]["decode_f32"],
                  min_top1=1.0)
     # a second witness of that gap: decode against the plain path's forward,
     # and the kernel path's forward against the plain path's, at this length.
     # Both compare every position, as decode vs forward does, so both take
     # its limit (prefill_f32 was read on a prefill's last position only)
-    with plain_kernels():
+    with plain_kernels(), routes.replay():
         (p_fwd, _), _ = counted_all(f"{arch} f32 forward S={DECODE_LEN} (plain)", {}, forward,
                                     p32, cfg32, toks)
     logits_close(f"{arch} f32 decode vs plain forward", dec, p_fwd, LIMITS[arch]["decode_f32"],
@@ -1561,9 +1743,12 @@ def main() -> int:
     model_paths: dict[str, dict] = {name: {} for name in COUNTERS}
     f32_prefills = {}
     for arch in FORWARD_LAUNCHES:  # one model on the card at a time
-        cfg, params, by_path = prefill_phase(arch, device, card)
+        cfg, params, by_path, bf16_plain = prefill_phase(arch, device, card)
         log(f"[time] after {arch} prefill phase {time.perf_counter() - t_start:.1f} s")
-        f32_paths, f32_prefills[arch] = f32_phase(arch, cfg, params, device, card)
+        f32_paths, f32_prefills[arch] = f32_phase(
+            arch, cfg, params, device, card, None if arch in F32_REPEATS else bf16_plain)
+        del bf16_plain
+        log(f"[time] after {arch} f32 phase {time.perf_counter() - t_start:.1f} s")
         for paths in (by_path, serving_phase(arch, cfg, params, device, card), f32_paths):
             for name, counts in paths.items():
                 model_paths[name].update(counts)

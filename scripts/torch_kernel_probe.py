@@ -161,16 +161,25 @@ RWKV32_SPLIT = {
                   "*reinterpret_cast<const float4*>(ks + i * L::RS")],
     "expf_fast": [("expf(", "__expf(")],
 }
-# the f32 flash source: rows a thread, kv tile and row groups at D <= 128,
-# and the unrolling of both product loops
-FLASH_TILE = ", 8, 64, 16>("
+# the f32 flash source: rows a thread, kv tile and row groups of the
+# instances at D <= 128 and minicpm3-4b's (96, 64) (D = 256 and (192, 128)
+# keep theirs: larger tiles would not fit), and the unrolling of both
+# product loops
+FLASH_TILE_DIMS = ((16, 16), (32, 32), (64, 64), (96, 96), (112, 112), (128, 128), (96, 64))
+
+
+def flash_tile(rm: int, bk: int, rg: int) -> list:
+    return [(f"<{d}, {dv}, 8, 64, 16>(", f"<{d}, {dv}, {rm}, {bk}, {rg}>(")
+            for d, dv in FLASH_TILE_DIMS]
+
+
+FLASH_UNROLL = {n: ("#pragma unroll 8\n", f"#pragma unroll {n}\n") for n in (2, 4)}
 FLASH_VARIANTS = {
-    "rm_4": [(FLASH_TILE, ", 4, 64, 16>(")], "bk_32": [(FLASH_TILE, ", 8, 32, 16>(")],
-    "unroll_2": [("#pragma unroll 8\n", "#pragma unroll 2\n")],
-    "unroll_4": [("#pragma unroll 8\n", "#pragma unroll 4\n")],
-    "rg_24": [(FLASH_TILE, ", 8, 64, 24>(")],
-    "rg_24_unroll_4": [(FLASH_TILE, ", 8, 64, 24>("), ("#pragma unroll 8\n", "#pragma unroll 4\n")],
-    "rg_24_unroll_2": [(FLASH_TILE, ", 8, 64, 24>("), ("#pragma unroll 8\n", "#pragma unroll 2\n")],
+    "rm_4": flash_tile(4, 64, 16), "bk_32": flash_tile(8, 32, 16),
+    "unroll_2": [FLASH_UNROLL[2]], "unroll_4": [FLASH_UNROLL[4]],
+    "rg_24": flash_tile(8, 64, 24),
+    "rg_24_unroll_4": [*flash_tile(8, 64, 24), FLASH_UNROLL[4]],
+    "rg_24_unroll_2": [*flash_tile(8, 64, 24), FLASH_UNROLL[2]],
 }
 # the f32 flash source with a product loop emptied: S = Q K^T alone (P V
 # skipped, the output wrong), P V alone (every score 0), neither (loads,
@@ -349,7 +358,7 @@ def flash_split(device) -> dict:
         B, S, H, KH, D, window = shape
         q, k, v = flash_inputs(shape, device)
         kw = dict(window=window)
-        instance = f"flash_fwdILi{D}ELi8ELi64ELi16E"
+        instance = f"flash_fwdILi{D}ELi{D}ELi8ELi64ELi16E"
         row = {"port": {"ms": cs.time_call(fa.flash_attention_hsd, (q, k, v), kw, reps=10),
                         "sass": instance_sass(paths["port"], instance, SPLIT_OPS)}}
         for name, lib in libs.items():

@@ -9,10 +9,12 @@
 // scratch that persists across kv steps, and skipped tiles outside the
 // causal/window band with pl.when.
 //
-// Layout: q (B, H, S, D), k and v (B, KH, S, D), o (B, H, S, D), all f32 and
-// contiguous; f32 products and softmax. kv head h/(H/KH). Rows of q, k and v
-// load by 16 bytes when the three bases are 16-byte aligned (every row is
-// then, as D is a multiple of 16), else element by element.
+// Layout: q (B, H, S, D), k (B, KH, S, D), v (B, KH, S, DV), o (B, H, S,
+// DV), all f32 and contiguous; f32 products and softmax. kv head h/(H/KH).
+// V and O have a head dim of their own (MLA: D = 96 or 192 against DV = 64
+// or 128), a template parameter, so P V and the store run at DV. Rows of q,
+// k and v load by 16 bytes when the three bases are 16-byte aligned (every
+// row is then, as D and DV are multiples of 16), else element by element.
 // Mask: pos_k <= pos_q when causal, and pos_k > pos_q - window when
 // window > 0, with a -1e30 sentinel (never -inf, so a row whose first tile is
 // fully masked gives no NaN); each row ends divided by max(l, 1e-30). The
@@ -38,12 +40,13 @@
 //     reads conflict: RM + BK/16 float4 loads for 4*RM*BK/16 FMAs;
 //   * O += P V: P goes to a tile private to the warp (no block barrier), each
 //     thread reads its RM probabilities of a key by float4 (one address for
-//     the 16 threads of a row group) and D/16 values of v, by float4 where D
-//     is a multiple of 64;
+//     the 16 threads of a row group) and DV/16 values of v, by float4 where
+//     DV is a multiple of 64;
 //   * K and V are loaded by cp.async behind the compute: where two stages of
-//     them fit (D <= 112), tile j+1 while tile j is computed, one block
-//     barrier a tile; else V of tile j while S of tile j is computed and K of
-//     tile j+1 while P V of tile j is, two barriers a tile;
+//     them fit (D <= 112, and (96, 64)), tile j+1 while tile j is
+//     computed, one block barrier a tile; else V of tile j while S of tile
+//     j is computed and K of tile j+1 while P V of tile j is, two barriers
+//     a tile;
 //   * the running m, the partial l (summed over the row's 16 threads once, at
 //     the end) and acc stay in registers; the row max reduces over the 16
 //     threads with xor shuffles;
@@ -61,21 +64,22 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 
-// One instance: head dim D, RM query rows a thread, BK keys a kv tile, RG
-// row groups (ty) of 16 key / column threads (tx) a block.
-template <int D, int RM, int BK, int RG>
+// One instance: head dims D (q, k) and DV (v, o), RM query rows a thread, BK
+// keys a kv tile, RG row groups (ty) of 16 key / column threads (tx) a block.
+template <int D, int DV, int RM, int BK, int RG>
 struct Cfg {
-  static_assert(D % 16 == 0 && RM % 4 == 0 && BK % 16 == 0 && RG % 2 == 0, "tile shapes");
+  static_assert(D % 16 == 0 && DV % 16 == 0 && RM % 4 == 0 && BK % 16 == 0 && RG % 2 == 0,
+                "tile shapes");
   static constexpr int THREADS = 16 * RG;
   static constexpr int WARPS = RG / 2;
   static constexpr int BQ = RG * RM;                 // query rows of a block
   static constexpr int KPT = BK / 16;                // keys of a tile a thread scores
-  static constexpr int DC = D / 16;                  // output columns of a thread
-  static constexpr int VW = D % 64 == 0 ? 4 : 1;     // value columns read at once
+  static constexpr int DC = DV / 16;                 // output columns of a thread
+  static constexpr int VW = DV % 64 == 0 ? 4 : 1;    // value columns read at once
   static constexpr int QS = D + 4;                   // row stride of the Q and K tiles
   static constexpr int WR = 2 * RM;                  // query rows of a warp
   static constexpr int PS = WR + 4;                  // row (key) stride of a warp's P tile
-  static constexpr int KV = BK * QS + BK * D;        // one stage: a K and a V tile
+  static constexpr int KV = BK * QS + BK * DV;       // one stage: a K and a V tile
   static constexpr int P_FLOATS = WARPS * BK * PS;
   // two stages (one barrier a tile) where they fit the block's 227 KB
   static constexpr int STAGES = (BQ * QS + 2 * KV + P_FLOATS) * 4 <= 232448 ? 2 : 1;
@@ -141,17 +145,17 @@ __device__ __forceinline__ void load_tile(float* dst, int stride, const float* s
   cp_async_commit();
 }
 
-template <int D, int RM, int BK, int RG>
-__global__ void __launch_bounds__(16 * RG, (Cfg<D, RM, BK, RG>::BLOCKS))
+template <int D, int DV, int RM, int BK, int RG>
+__global__ void __launch_bounds__(16 * RG, (Cfg<D, DV, RM, BK, RG>::BLOCKS))
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
           float* __restrict__ o, int H, int KH, int S, int window, int causal, float scale,
           int vec) {
-  using C = Cfg<D, RM, BK, RG>;
+  using C = Cfg<D, DV, RM, BK, RG>;
   constexpr int THREADS = C::THREADS;
   constexpr int BQ = C::BQ, KPT = C::KPT, DC = C::DC, VW = C::VW, QS = C::QS, PS = C::PS;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;             // [BQ][QS]  q * scale
-  // stage s: K [BK][QS] at K_OFF + s * KV, V [BK][D] at V_OFF + s * KV
+  // stage s: K [BK][QS] at K_OFF + s * KV, V [BK][DV] at V_OFF + s * KV
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest (latest) tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -161,7 +165,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float*
   float* pw = smem + C::P_OFF + warp * BK * PS + RM * (ty & 1);  // [key][this thread's rows]
   const size_t qbase = ((size_t)b * H + h) * (size_t)S * D;
   const float* kb = k + ((size_t)b * KH + kh) * (size_t)S * D;
-  const float* vb = v + ((size_t)b * KH + kh) * (size_t)S * D;
+  const float* vb = v + ((size_t)b * KH + kh) * (size_t)S * DV;
 
   // the band of kv tiles that meets the block's rows
   const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
@@ -169,7 +173,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float*
   const int t0 = k_first / BK;
   const int n_tiles = k_last / BK - t0 + 1;
   load_tile<D, BK, THREADS>(smem + C::K_OFF, QS, kb, t0 * BK, S, vec);
-  if (C::STAGES == 2) load_tile<D, BK, THREADS>(smem + C::V_OFF, D, vb, t0 * BK, S, vec);
+  if (C::STAGES == 2) load_tile<DV, BK, THREADS>(smem + C::V_OFF, DV, vb, t0 * BK, S, vec);
 
   for (int i = tid; i < BQ * (D / 4); i += THREADS) {
     const int r = i / (D / 4), c = 4 * (i - r * (D / 4));
@@ -205,10 +209,11 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float*
     // done with tile j - 1
     __syncthreads();
     if (C::STAGES == 1) {
-      load_tile<D, BK, THREADS>(smem + C::V_OFF, D, vb, k0, S, vec);
+      load_tile<DV, BK, THREADS>(smem + C::V_OFF, DV, vb, k0, S, vec);
     } else if (j + 1 < n_tiles) {  // tile j + 1 into the other stage
       load_tile<D, BK, THREADS>(smem + C::K_OFF + (stage ^ 1) * C::KV, QS, kb, k0 + BK, S, vec);
-      load_tile<D, BK, THREADS>(smem + C::V_OFF + (stage ^ 1) * C::KV, D, vb, k0 + BK, S, vec);
+      load_tile<DV, BK, THREADS>(smem + C::V_OFF + (stage ^ 1) * C::KV, DV, vb, k0 + BK, S,
+                                 vec);
     }
     const bool live = wr0 < S && (!causal || k0 <= wr_last) &&
                       !(window > 0 && k0 + BK - 1 <= wr0 - window);
@@ -298,7 +303,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float*
           p[i + 2] = t.z;
           p[i + 3] = t.w;
         }
-        const float* vr = vs + c2 * D;
+        const float* vr = vs + c2 * DV;
 #pragma unroll
         for (int cg = 0; cg < DC / VW; ++cg) {
           float x[VW];
@@ -329,7 +334,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float*
     const int pq = q0 + RM * ty + i;
     if (pq >= S) continue;
     const float denom = fmaxf(li, 1e-30f);
-    float* row = o + qbase + (size_t)pq * D;
+    float* row = o + ((size_t)b * H + h) * (size_t)S * DV + (size_t)pq * DV;
 #pragma unroll
     for (int cg = 0; cg < DC / VW; ++cg)
 #pragma unroll
@@ -340,16 +345,16 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float*
   }
 }
 
-template <int D, int RM, int BK, int RG>
+template <int D, int DV, int RM, int BK, int RG>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KH, int S,
            int window, int causal, float scale, int vec, cudaStream_t stream) {
-  using C = Cfg<D, RM, BK, RG>;
+  using C = Cfg<D, DV, RM, BK, RG>;
   static_assert(C::BYTES <= 232448, "the tiles exceed a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<D, RM, BK, RG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::BYTES);
+      flash_fwd<D, DV, RM, BK, RG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + C::BQ - 1) / C::BQ, H, B);
-  flash_fwd<D, RM, BK, RG><<<grid, C::THREADS, C::BYTES, stream>>>(
+  flash_fwd<D, DV, RM, BK, RG><<<grid, C::THREADS, C::BYTES, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), H, KH, S, window, causal, scale, vec);
   return (int)cudaGetLastError();
@@ -357,34 +362,41 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 
 // 8 query rows a thread (128-row blocks of 256 threads) and 64-key tiles; 4
 // rows at D = 256. The probe's diagnostic builds of other widths ran slower
-// (PERF.md).
-int dispatch(int D, const void* q, const void* k, const void* v, void* o, int B, int H, int KH,
-             int S, int window, int causal, float scale, int vec, cudaStream_t st) {
-  switch (D) {
-    case 16: return launch<16, 8, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
-    case 32: return launch<32, 8, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
-    case 64: return launch<64, 8, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
-    case 96: return launch<96, 8, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
-    case 112:
-      return launch<112, 8, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
-    case 128:
-      return launch<128, 8, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
-    case 256:
-      return launch<256, 4, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// (PERF.md). (192, 128) fits one stage (219 KB) at 8 rows.
+int dispatch(int D, int DV, const void* q, const void* k, const void* v, void* o, int B, int H,
+             int KH, int S, int window, int causal, float scale, int vec, cudaStream_t st) {
+  if (D == 16 && DV == 16)
+    return launch<16, 16, 8, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
+  if (D == 32 && DV == 32)
+    return launch<32, 32, 8, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
+  if (D == 64 && DV == 64)
+    return launch<64, 64, 8, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
+  if (D == 96 && DV == 96)
+    return launch<96, 96, 8, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
+  if (D == 112 && DV == 112)
+    return launch<112, 112, 8, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
+  if (D == 128 && DV == 128)
+    return launch<128, 128, 8, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
+  if (D == 256 && DV == 256)
+    return launch<256, 256, 4, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
+  if (D == 96 && DV == 64)  // minicpm3-4b's MLA
+    return launch<96, 64, 8, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
+  if (D == 192 && DV == 128)  // deepseek-v2's MLA
+    return launch<192, 128, 8, 64, 16>(q, k, v, o, B, H, KH, S, window, causal, scale, vec, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Returns the launch's cudaGetLastError() code (0 on success); f32 tensors
-// only. causal is 0 or 1; scale multiplies q; vec says that q, k and v are
-// 16-byte aligned. Does not synchronise.
+// only. D is q's and k's head dim, DV v's and o's; causal is 0 or 1; scale
+// multiplies q; vec says that q, k and v are 16-byte aligned. Does not
+// synchronise.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int B, int H, int KH, int S, int D, int window, int causal,
-                                      float scale, int vec, void* stream) {
+                                      int B, int H, int KH, int S, int D, int DV, int window,
+                                      int causal, float scale, int vec, void* stream) {
   if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || S < 1 || window < 0)
     return (int)cudaErrorInvalidValue;
-  return dispatch(D, q, k, v, o, B, H, KH, S, window, causal != 0, scale, vec != 0,
+  return dispatch(D, DV, q, k, v, o, B, H, KH, S, window, causal != 0, scale, vec != 0,
                   static_cast<cudaStream_t>(stream));
 }

@@ -9,12 +9,12 @@
 // causal/window band with pl.when, and fed both products to the MXU.
 //
 // Computes what that kernel and csrc/flash_attention.cu (the f32 path)
-// compute: q (B, H, S, D), k and v (B, KH, S, D), o (B, H, S, D), all bf16
-// and contiguous; kv head h / (H / KH); the caller's scale (D^-0.5 by
-// default) applied to the f32 scores; mask pos_k <= pos_q when causal, and
-// pos_k > pos_q - window when window > 0, with a -1e30 sentinel; each row
-// ends divided by max(l, 1e-30). Any S (ragged edges masked); Sq == Skv only
-// (the wrapper enforces it).
+// compute: q (B, H, S, D), k (B, KH, S, D), v (B, KH, S, Dv), o (B, H, S,
+// Dv), all bf16 and contiguous; kv head h / (H / KH); the caller's scale
+// (D^-0.5 by default) applied to the f32 scores; mask pos_k <= pos_q when
+// causal, and pos_k > pos_q - window when window > 0, with a -1e30
+// sentinel; each row ends divided by max(l, 1e-30). Any S (ragged edges
+// masked); Sq == Skv only (the wrapper enforces it).
 //
 // What bounds it on Hopper: operations at the global shapes (4*D flops a
 // live (q, k) pair against q, k, v and o moved once: at S = 32768 the
@@ -35,6 +35,11 @@
 //     conflicts; rows past S and columns past D come back as zeros, so
 //     D = 16, 32, 96 and 112 run padded to 64, 128 (the zero columns add
 //     nothing) and a ragged last tile needs no special load;
+//   * V has a head dim of its own (MLA: Dk = 96 or 192 against Dv = 64 or
+//     128), a template parameter and not a padding of V: the V ring, V's and
+//     O's tensor maps and the O accumulator are DVP (Dv in whole 64-column
+//     boxes) wide, so P.V and the output store run at Dv, and Q.K^T walks the
+//     DP / 64 boxes of Q and K whatever their count (3 at Dk = 192);
 //   * one CTA per (128 query rows, head, batch): two consumer warpgroups of
 //     64 rows each, plus a producer warpgroup that gives its registers to
 //     them (setmaxnreg), so the f32 accumulator of 64 x 256 (128 registers a
@@ -84,11 +89,12 @@ constexpr int ENCODE_ERROR = 10000;   // + the CUresult of cuTensorMapEncodeTile
 
 // Shared memory of one instance; kernels/flash_attention.py (WgmmaPlan)
 // computes the same bytes.
-template <int DP, int BK, int STAGES>
+template <int DP, int DVP, int BK, int STAGES>
 struct Layout {
   static constexpr int Q_BYTES = BQ * DP * 2;
-  static constexpr int KV_BYTES = BK * DP * 2;  // one K or V tile
-  static constexpr int BAR_OFFSET = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int K_BYTES = BK * DP * 2;   // one K tile
+  static constexpr int V_BYTES = BK * DVP * 2;  // one V tile
+  static constexpr int BAR_OFFSET = Q_BYTES + STAGES * (K_BYTES + V_BYTES);
   static constexpr int BARRIERS = 1 + 3 * STAGES;  // q, and k full, v full, empty per slot
   static constexpr int SMEM = 1024 + BAR_OFFSET + 8 * BARRIERS;  // 1024: alignment slack
 };
@@ -314,19 +320,19 @@ __device__ __forceinline__ Tile tile_of(int H, int KH, int S, int window, int ca
   return t;
 }
 
-template <int DP, int BK, int STAGES>
+template <int DP, int DVP, int BK, int STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int H,
-                int KH, int S, int D, int window, int causal, float scale_log2) {
-  using L = Layout<DP, BK, STAGES>;
-  static_assert(DP % COLS == 0 && BK % 16 == 0, "tile shapes");
+                int KH, int S, int Dv, int window, int causal, float scale_log2) {
+  using L = Layout<DP, DVP, BK, STAGES>;
+  static_assert(DP % COLS == 0 && DVP % COLS == 0 && BK % 16 == 0, "tile shapes");
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;                       // [DP/64][BQ rows][128 B]
   const uint32_t sK = base + L::Q_BYTES;          // STAGES x [DP/64][BK rows][128 B]
-  const uint32_t sV = sK + STAGES * L::KV_BYTES;  // the same for V
+  const uint32_t sV = sK + STAGES * L::K_BYTES;   // STAGES x [DVP/64][BK rows][128 B]
   const uint32_t q_full = base + L::BAR_OFFSET;
   auto k_full = [&](int s) { return q_full + 8u * (1 + s); };
   auto v_full = [&](int s) { return q_full + 8u * (1 + STAGES + s); };
@@ -358,14 +364,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         const int s = j % STAGES;
         mbar_wait(empty(s), ((j / STAGES) & 1) ^ 1);  // the first round passes at once
         const int k0 = (t.t0 + j) * BK;
-        const uint32_t kdst = sK + s * L::KV_BYTES, vdst = sV + s * L::KV_BYTES;
-        mbar_expect_tx(k_full(s), L::KV_BYTES);
+        const uint32_t kdst = sK + s * L::K_BYTES, vdst = sV + s * L::V_BYTES;
+        mbar_expect_tx(k_full(s), L::K_BYTES);
 #pragma unroll
         for (int c = 0; c < DP / COLS; ++c)
           tma_load(kdst + c * BK * ROW_BYTES, &tk, k_full(s), c * COLS, k0, t.kh, t.b);
-        mbar_expect_tx(v_full(s), L::KV_BYTES);
+        mbar_expect_tx(v_full(s), L::V_BYTES);
 #pragma unroll
-        for (int c = 0; c < DP / COLS; ++c)
+        for (int c = 0; c < DVP / COLS; ++c)
           tma_load(vdst + c * BK * ROW_BYTES, &tv, v_full(s), c * COLS, k0, t.kh, t.b);
       }
     }
@@ -384,9 +390,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int col0 = 2 * (lane % 4);              // and columns col0, col0 + 1 of each 8
   const uint32_t qa = sQ + cw * 64 * ROW_BYTES;
 
-  float acc[DP / 2];
+  float acc[DVP / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DVP / 2; ++i) acc[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's partial row sums
 
   mbar_wait(q_full, 0);
@@ -403,7 +409,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       // columns is 32 bytes inside a swizzled row, a 64-column box BQ*128
       // (Q) or BK*128 (K) bytes further; 8-row groups 1024 bytes apart
       const uint64_t dq = smem_desc(qa, 16, 1024);
-      const uint64_t dk = smem_desc(sK + s * L::KV_BYTES, 16, 1024);
+      const uint64_t dk = smem_desc(sK + s * L::K_BYTES, 16, 1024);
       float sc[BK / 2];
       wg_fence();
 #pragma unroll
@@ -453,7 +459,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = __fmaf_rn(l[r], corr[r], sum[r]);
 #pragma unroll
-      for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < DVP / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
       // P in bf16 as the A fragments of BK/16 k-steps: k-step kk takes the
       // accumulator columns 16kk..16kk+15, which this thread already holds
@@ -470,7 +476,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       wg_fence();
       // V tile: keys are K (16 a step, 2048 bytes), head columns are N,
       // MN-major: 64-column boxes BK*128 bytes apart, 8-key groups 1024 apart
-      const uint64_t dv = smem_desc(sV + s * L::KV_BYTES, BK * ROW_BYTES, 1024);
+      const uint64_t dv = smem_desc(sV + s * L::V_BYTES, BK * ROW_BYTES, 1024);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(acc, pa[kk], dv + ((kk * 16 * ROW_BYTES) >> 4));
       wg_commit();
@@ -495,11 +501,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     // to a slow-path subroutine, which cost 2-16% of the kernel's time
     float inv;
     asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(inv) : "f"(fmaxf(l[r], 1e-30f)));
-    __nv_bfloat16* out = o + ((size_t)t.bh * S + row) * D;
+    __nv_bfloat16* out = o + ((size_t)t.bh * S + row) * Dv;
 #pragma unroll
-    for (int c = 0; c < DP / 8; ++c) {
+    for (int c = 0; c < DVP / 8; ++c) {
       const int col = 8 * c + col0;
-      if (col < D)
+      if (col < Dv)
         *reinterpret_cast<__nv_bfloat162*>(out + col) =
             __floats2bfloat162_rn(acc[4 * c + 2 * r] * inv, acc[4 * c + 2 * r + 1] * inv);
     }
@@ -542,54 +548,55 @@ int tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B
   return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)r;
 }
 
-template <int DP, int BK, int STAGES>
+template <int DP, int DVP, int BK, int STAGES>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KH, int S,
-           int D, int window, int causal, float scale, int block_k, int stages, int smem,
-           int grid, cudaStream_t stream) {
-  using L = Layout<DP, BK, STAGES>;
+           int D, int Dv, int window, int causal, float scale, int block_k, int stages,
+           int smem, int grid, cudaStream_t stream) {
+  using L = Layout<DP, DVP, BK, STAGES>;
+  static_assert(L::SMEM <= 232448, "the tiles exceed a block's shared memory");
   const int tiles = (S + BQ - 1) / BQ;
   if (block_k != BK || stages != STAGES || smem != L::SMEM || grid != tiles * B * H)
     return PLAN_MISMATCH;
   CUtensorMap tq, tk, tv;
   int err = tensor_map(&tq, q, D, S, H, B, BQ);
   if (!err) err = tensor_map(&tk, k, D, S, KH, B, BK);
-  if (!err) err = tensor_map(&tv, v, D, S, KH, B, BK);
+  if (!err) err = tensor_map(&tv, v, Dv, S, KH, B, BK);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<DP, BK, STAGES>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<DP, DVP, BK, STAGES>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_wgmma<DP, BK, STAGES><<<grid, THREADS, L::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, KH, S, D, window, causal != 0,
+  flash_fwd_wgmma<DP, DVP, BK, STAGES><<<grid, THREADS, L::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, KH, S, Dv, window, causal != 0,
       scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the kernel instance of the plan (d_pad, block_k, stages,
-// smem_bytes, grid) that kernels/flash_attention.py computed; causal is 0 or
-// 1, scale multiplies the f32 scores. Returns 0 on
-// success, a cudaError_t code, PLAN_MISMATCH (-1) when the plan is not the
-// compiled instance's, or ENCODE_ERROR (10000) + the CUresult of a failed
-// cuTensorMapEncodeTiled. Does not synchronise.
+// Launches the kernel instance of the plan (d_pad, dv_pad, block_k, stages,
+// smem_bytes, grid) that kernels/flash_attention.py computed; D is q's and
+// k's head dim, Dv v's and o's; causal is 0 or 1, scale multiplies the f32
+// scores. Returns 0 on success, a cudaError_t code, PLAN_MISMATCH (-1) when
+// the plan is not a compiled instance's, or ENCODE_ERROR (10000) + the
+// CUresult of a failed cuTensorMapEncodeTiled. Does not synchronise.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o,
-                                            int B, int H, int KH, int S, int D, int window,
-                                            int causal, float scale, int d_pad, int block_k,
-                                            int stages, int smem_bytes, int grid, void* stream) {
-  if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || S < 1 || D < 8 || D % 8 != 0 || D > d_pad)
+                                            int B, int H, int KH, int S, int D, int Dv,
+                                            int window, int causal, float scale, int d_pad,
+                                            int dv_pad, int block_k, int stages, int smem_bytes,
+                                            int grid, void* stream) {
+  if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || S < 1 || D < 8 || D % 8 != 0 || D > d_pad ||
+      Dv < 8 || Dv % 8 != 0 || Dv > dv_pad)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d_pad) {
-    case 64:
-      return launch<64, 128, 2>(q, k, v, o, B, H, KH, S, D, window, causal, scale, block_k, stages,
-                                smem_bytes, grid, st);
-    case 128:
-      return launch<128, 128, 2>(q, k, v, o, B, H, KH, S, D, window, causal, scale, block_k, stages,
-                                 smem_bytes, grid, st);
-    case 256:
-      return launch<256, 64, 2>(q, k, v, o, B, H, KH, S, D, window, causal, scale, block_k, stages,
-                                smem_bytes, grid, st);
-    default:
-      return PLAN_MISMATCH;
-  }
+#define FLASH_WGMMA(DP, DVP, BK)                                                                 \
+  if (d_pad == DP && dv_pad == DVP)                                                              \
+    return launch<DP, DVP, BK, 2>(q, k, v, o, B, H, KH, S, D, Dv, window, causal, scale, block_k, \
+                                  stages, smem_bytes, grid, st);
+  FLASH_WGMMA(64, 64, 128)
+  FLASH_WGMMA(128, 128, 128)
+  FLASH_WGMMA(256, 256, 64)
+  FLASH_WGMMA(128, 64, 128)   // minicpm3-4b's MLA: Dk = 96, Dv = 64
+  FLASH_WGMMA(192, 128, 128)  // deepseek-v2's MLA: Dk = 192, Dv = 128
+#undef FLASH_WGMMA
+  return PLAN_MISMATCH;
 }

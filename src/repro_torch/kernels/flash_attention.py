@@ -1,19 +1,20 @@
 """GQA flash attention: the two CUDA kernels' wrapper and their plain version.
 
-:func:`flash_attention_hsd` takes heads-major q ``(B, H, S, D)`` and k/v
-``(B, KH, S, D)`` and returns ``(B, H, S, D)`` in q's dtype: attention that is
-causal (``causal=True``, the default: ``pos_k <= pos_q``) or not, with an
-optional sliding window (``pos_k > pos_q - window``), kv head ``h // (H //
-KH)``, the f32 scores multiplied by ``scale`` (``D**-0.5`` when None), softmax
-in f32. The keywords are the JAX package's ``flash_attention_hsd``'s.
+:func:`flash_attention_hsd` takes heads-major q ``(B, H, S, D)``, k ``(B, KH,
+S, D)`` and v ``(B, KH, S, Dv)`` and returns ``(B, H, S, Dv)`` in q's dtype:
+attention that is causal (``causal=True``, the default: ``pos_k <= pos_q``)
+or not, with an optional sliding window (``pos_k > pos_q - window``), kv head
+``h // (H // KH)``, the f32 scores multiplied by ``scale`` (``D**-0.5`` when
+None), softmax in f32. The keywords are the JAX package's ``flash_attention_hsd``'s.
 
 On a CUDA tensor it launches one kernel, by dtype, and raises on any input
-the kernels do not take:
+the kernels do not take; both are built for the ``(D, Dv)`` pairs of
+:data:`HEAD_DIMS` (Dv == D, and MLA's (96, 64) and (192, 128)):
 
 - bf16: ``csrc/flash_attention_wgmma.cu`` (:func:`flash_attention_wgmma`),
   both products on the tensor cores with bf16 operands and f32 sums, P
   rounded to bf16 for P.V, tiles loaded by TMA. Its host-side plan (padded
-  head dim, box sizes, stages, shared memory, grid) is :func:`wgmma_plan`.
+  head dims, box sizes, stages, shared memory, grid) is :func:`wgmma_plan`.
 - f32: ``csrc/flash_attention.cu`` (:func:`flash_attention_f32`), exact f32
   products on the CUDA cores: the yardstick of the f32 model checks.
 
@@ -46,7 +47,12 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)  # the head dims both kernels take
+# the (D, Dv) head-dim pairs both kernels take: q's and k's D, v's Dv
+HEAD_DIMS = (
+    (16, 16), (32, 32), (64, 64), (96, 96), (112, 112), (128, 128), (256, 256),
+    (96, 64),  # minicpm3-4b's MLA: qk_nope 64 + qk_rope 32, v 64
+    (192, 128),  # deepseek-v2's MLA: qk_nope 128 + qk_rope 64, v 128
+)
 DTYPES = (torch.bfloat16, torch.float32)
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on the H100
 BLOCK_Q = 128  # query rows of a wgmma CTA: two consumer warpgroups of 64
@@ -60,7 +66,9 @@ class WgmmaPlan:
     ``Layout``)."""
 
     head_dim: int
-    d_pad: int  # head dim padded to whole 64-column boxes (zero columns)
+    v_head_dim: int
+    d_pad: int  # q's and k's head dim padded to whole 64-column boxes (zero columns)
+    dv_pad: int  # v's and o's, the same way
     block_k: int  # keys of a K/V tile
     stages: int  # K/V slots in the ring
 
@@ -71,6 +79,8 @@ class WgmmaPlan:
 
     @property
     def box_kv(self) -> tuple[int, int]:
+        """(columns, rows) of one K or V box; ``d_pad // BOX_COLS`` K boxes
+        and ``dv_pad // BOX_COLS`` V boxes a tile."""
         return BOX_COLS, self.block_k
 
     @property
@@ -78,7 +88,7 @@ class WgmmaPlan:
         """Q, the K and V ring, the mbarriers (q, and k full, v full, empty
         per slot) and 1024 bytes of slack to align the swizzled tiles."""
         q = BLOCK_Q * self.d_pad * 2
-        kv = 2 * self.stages * self.block_k * self.d_pad * 2
+        kv = self.stages * self.block_k * (self.d_pad + self.dv_pad) * 2
         return 1024 + q + kv + 8 * (1 + 3 * self.stages)
 
     def grid(self, B: int, H: int, S: int) -> int:
@@ -86,14 +96,19 @@ class WgmmaPlan:
         return -(-S // BLOCK_Q) * H * B
 
 
-def wgmma_plan(D: int) -> WgmmaPlan:
-    """The bf16 kernel's plan for head dim ``D``: 64-key tiles at D=256 (the
-    f32 accumulator of 64 x 256 takes 128 registers a thread), 128-key tiles
-    below; two slots each."""
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D}; the kernels are built for {HEAD_DIMS}")
-    d_pad = -(-D // BOX_COLS) * BOX_COLS
-    return WgmmaPlan(head_dim=D, d_pad=d_pad, block_k=64 if d_pad == 256 else 128, stages=2)
+def _pad(D: int) -> int:
+    return -(-D // BOX_COLS) * BOX_COLS
+
+
+def wgmma_plan(D: int, Dv: int) -> WgmmaPlan:
+    """The bf16 kernel's plan for head dims ``D`` (q, k) and ``Dv`` (v, o):
+    64-key tiles at Dv=256 (the f32 accumulator of 64 x 256 takes 128
+    registers a thread), 128-key tiles below; two slots each."""
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"head dims ({D}, {Dv}); the kernels are built for {HEAD_DIMS}")
+    dv_pad = _pad(Dv)
+    return WgmmaPlan(head_dim=D, v_head_dim=Dv, d_pad=_pad(D), dv_pad=dv_pad,
+                     block_k=64 if dv_pad == 256 else 128, stages=2)
 
 
 @torch.no_grad()
@@ -191,15 +206,16 @@ def flash_attention_wgmma(q, k, v, out, *, causal: bool, window: int, scale: flo
     """Launch ``csrc/flash_attention_wgmma.cu`` on checked bf16 CUDA tensors,
     writing ``out``; counts its launches."""
     B, H, S, D = q.shape
-    plan = wgmma_plan(D)
-    fn = _build.launcher("flash_attention_wgmma", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    Dv = v.shape[-1]
+    plan = wgmma_plan(D, Dv)
+    fn = _build.launcher("flash_attention_wgmma", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, k.shape[1], S, D, int(window), int(causal), scale,
-            plan.d_pad, plan.block_k, plan.stages, plan.smem_bytes, plan.grid(B, H, S),
-            _stream(q),
+            B, H, k.shape[1], S, D, Dv, int(window), int(causal), scale,
+            plan.d_pad, plan.dv_pad, plan.block_k, plan.stages, plan.smem_bytes,
+            plan.grid(B, H, S), _stream(q),
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_wgmma launch failed: error {err}")
@@ -211,11 +227,11 @@ def flash_attention_f32(q, k, v, out, *, causal: bool, window: int, scale: float
     writing ``out``; counts its launches."""
     B, H, S, D = q.shape
     vec = all(x.data_ptr() % 16 == 0 for x in (q, k, v))  # else loads element by element
-    fn = _build.launcher("flash_attention", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    fn = _build.launcher("flash_attention", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, H, k.shape[1], S, D, int(window), int(causal), scale, int(vec), _stream(q))
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, k.shape[1], S,
+                 D, v.shape[-1], int(window), int(causal), scale, int(vec), _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention_f32.launches += 1
@@ -225,22 +241,23 @@ def flash_attention_f32(q, k, v, out, *, causal: bool, window: int, scale: float
 def flash_attention_hsd(
     q: torch.Tensor,  # (B, H, S, D)
     k: torch.Tensor,  # (B, KH, S, D)
-    v: torch.Tensor,  # (B, KH, S, D)
+    v: torch.Tensor,  # (B, KH, S, Dv)
     *,
     causal: bool = True,
     window: int = 0,
     scale: float | None = None,
     chunk: int = 1024,
 ) -> torch.Tensor:
-    """GQA attention, heads-major: causal unless ``causal=False``, within a
-    sliding window when ``window > 0``, scores scaled by ``scale``
-    (``D**-0.5`` when None). A CUDA ``q`` launches the bf16 or the f32
-    kernel; a CPU one runs the plain version with tiles of ``chunk`` (which
-    must divide S; the kernels ignore it)."""
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"q and k must be 4-D, got {tuple(q.shape)} and {tuple(k.shape)}")
+    """GQA attention, heads-major, ``(B, H, S, Dv)``: causal unless
+    ``causal=False``, within a sliding window when ``window > 0``, scores
+    scaled by ``scale`` (``D**-0.5`` when None). A CUDA ``q`` launches the
+    bf16 or the f32 kernel; a CPU one runs the plain version with tiles of
+    ``chunk`` (which must divide S; the kernels ignore it)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k and v must be 4-D, got {tuple(q.shape)}, {tuple(k.shape)} "
+                         f"and {tuple(v.shape)}")
     B, H, S, D = q.shape
-    KH, Skv = k.shape[1], k.shape[2]
+    KH, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     if Skv != S:
         # the TPU kernel aligns the causal mask top-left, its dense oracle
         # bottom-right; the model only attends with Sq == Skv
@@ -257,12 +274,12 @@ def flash_attention_hsd(
         raise TypeError(f"q has dtype {q.dtype}; the kernels take {DTYPES}")
     _check("q", q, q, (B, H, S, D))
     _check("k", k, q, (B, KH, S, D))
-    _check("v", v, q, (B, KH, S, D))
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D}; the kernels are built for {HEAD_DIMS}")
+    _check("v", v, q, (B, KH, S, Dv))
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"head dims ({D}, {Dv}); the kernels are built for {HEAD_DIMS}")
     if window < 0:
         raise ValueError(f"window {window} < 0")
-    out = torch.empty_like(q)
+    out = q.new_empty((B, H, S, Dv))
     if q.dtype == torch.bfloat16:
         # TMA reads each tensor from its base address: 16-byte alignment
         for name, x in (("q", q), ("k", k), ("v", v)):

@@ -20,14 +20,16 @@ __all__ = ["flash_attention", "rwkv6_scan", "ssd_scan"]
 def flash_attention(
     q: torch.Tensor,  # (B, S, H, D) — model layout
     k: torch.Tensor,  # (B, S, KH, D)
-    v: torch.Tensor,
+    v: torch.Tensor,  # (B, S, KH, Dv)
     *,
     causal: bool = True,
     window: int = 0,
+    scale: float | None = None,
     chunk: int = 1024,
 ) -> torch.Tensor:
-    """GQA attention in the model layout, causal unless ``causal=False``
-    (sliding-window when ``window > 0``); ``chunk`` tiles the plain version
+    """GQA attention in the model layout, ``(B, S, H, Dv)``: causal unless
+    ``causal=False`` (sliding-window when ``window > 0``), scores scaled by
+    ``scale`` (``D**-0.5`` when None); ``chunk`` tiles the plain version
     only."""
     out = flash_attention_hsd(
         q.transpose(1, 2).contiguous(),
@@ -35,6 +37,7 @@ def flash_attention(
         v.transpose(1, 2).contiguous(),
         causal=causal,
         window=window,
+        scale=scale,
         chunk=chunk,
     )
     return out.transpose(1, 2)

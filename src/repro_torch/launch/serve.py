@@ -3,8 +3,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b-smoke \
       --requests 16 --slots 4 --device cpu
 
-Any ported architecture runs: the dense attention models, zamba2-7b and
-rwkv6-3b (and their ``-smoke`` configs).
+Every architecture of ``repro_torch.configs`` runs, full size or ``-smoke``:
+the dense attention models, the MLA models (minicpm3-4b; deepseek-v2-lite-16b
+and deepseek-v3-671b with MoE MLPs), zamba2-7b and rwkv6-3b; e.g. on the card
+``--arch deepseek-v2-lite-16b --requests 8 --slots 4``.
 
 Weights are the port's seeded random init; nothing is downloaded. Runs on the
 card unless ``--device cpu`` is given.

@@ -7,16 +7,18 @@ stacked over the ``n_pattern_repeats`` groups (its ``lax.scan`` layout); the
 port keeps one dict per block, so group g, pattern position i becomes layer
 ``len(prefix) + g * len(pattern) + i``. The shared attention mixer
 (``stack["shared_attn"]``, ``None`` for every model but zamba2) is carried
-once, and every ``shared_attn`` block reads it. bf16 leaves (numpy's
-``bfloat16`` extension type) are carried bit for bit. Nothing here imports
-JAX.
+once, and every ``shared_attn`` block reads it. Every leaf is carried as it
+is, whatever its block: MLA's (``q_down``/``q_norm``/``q_up`` or ``wq``,
+``kv_down``, ``kv_norm``, ``kv_up``, ``wo``) and MoE's (the f32 ``router``,
+``w_up``/``w_gate``/``w_down`` stacked over the experts, the ``shared``
+experts' MLP), a group-stacked leaf losing only its leading group axis. bf16
+leaves (numpy's ``bfloat16`` extension type) are carried bit for bit.
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-from .transformer import check_block
 
 __all__ = ["params_from_jax", "tensor_from_numpy"]
 
@@ -35,8 +37,6 @@ def _tree(x, device):
 
 
 def params_from_jax(tree: dict, cfg, device="cuda") -> dict:
-    for b in cfg.blocks:
-        check_block(b)
     stack = tree["stack"]
     groups = []
     for g in range(cfg.n_pattern_repeats):

@@ -5,8 +5,12 @@
 tensor is made. Modality frontends are stubs, as there: ``frontend_embeds``
 (precomputed patch/conditioning embeddings) are prepended to the token
 embeddings and logits cover the text positions only, so ``seq_len`` always
-means the *total* sequence the backbone processes. Everything runs under
-``torch.no_grad``: the port serves, it does not train yet (ROADMAP A8).
+means the *total* sequence the backbone processes. ``forward_hidden``,
+``forward`` and ``prefill`` return the aux the JAX package's return: the MoE
+blocks' ``moe_balance_loss``, ``moe_dropped_frac`` and ``moe_router_zloss``,
+each summed over the layers in f32 (``{}`` for a model without MoE). Everything
+runs under ``torch.no_grad``: the port serves, it does not train yet (ROADMAP
+A8).
 """
 from __future__ import annotations
 

@@ -11,25 +11,22 @@ parameter set at ``stack["shared_attn"]`` (``None`` for every other model);
 each ``shared_attn`` block reads those same tensors and keeps its own norms
 and MLP.
 
-Mixers ``gqa``/``swa``, ``mamba2`` and ``rwkv6`` with ``dense`` or no MLPs are
-ported; an MLA or MoE block raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+Every block kind of the configs runs: mixers ``gqa``/``swa``, ``mla``,
+``mamba2`` and ``rwkv6``; channel mixers ``dense``, ``moe`` or none. A MoE
+block's load-balance metrics come back as the forward's ``aux``, summed over
+the layers in f32 as the JAX package's ``_sum_aux`` sums them; a model
+without MoE blocks returns ``{}``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm
 from .layers import mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
 Tensor = torch.Tensor
-
-# block kinds of later slices -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "mla": "ROADMAP A7d (MLA)",
-    "moe": "ROADMAP A7e (MoE)",
-}
 
 
 def pick_chunk(s: int, target: int = 1024) -> int:
@@ -41,19 +38,14 @@ def pick_chunk(s: int, target: int = 1024) -> int:
     return c
 
 
-def check_block(block) -> None:
-    """Raise ``NotImplementedError`` for a block the port does not run yet."""
-    for kind in (block.mixer, block.mlp):
-        if kind in NOT_PORTED:
-            raise NotImplementedError(f"{kind} blocks are not ported yet: {NOT_PORTED[kind]}")
-
-
 # ---------------------------------------------------------------------------
 # Single block
 # ---------------------------------------------------------------------------
 def mixer_init(gen: torch.Generator, cfg, block, dtype, device) -> dict:
     if block.mixer in ("gqa", "swa"):
         return attn.gqa_init(gen, cfg, dtype, device)
+    if block.mixer == "mla":
+        return attn.mla_init(gen, cfg, dtype, device)
     if block.mixer == "mamba2":
         return ssm.mamba2_init(gen, cfg, dtype, device)
     if block.mixer == "rwkv6":
@@ -62,19 +54,23 @@ def mixer_init(gen: torch.Generator, cfg, block, dtype, device) -> dict:
 
 
 def block_init(gen: torch.Generator, cfg, block, dtype, device) -> dict:
-    check_block(block)
     p: dict = {"norm1": rmsnorm_init(cfg.d_model, device)}
     if not block.shared_attn:
         p["mixer"] = mixer_init(gen, cfg, block, dtype, device)
     if block.mlp == "dense":
         p["norm2"] = rmsnorm_init(cfg.d_model, device)
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype, device)
+    elif block.mlp == "moe":
+        p["norm2"] = rmsnorm_init(cfg.d_model, device)
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
     return p
 
 
 def _apply_mixer(mp: dict, cfg, block, h: Tensor, chunk: int) -> Tensor:
     if block.mixer in ("gqa", "swa"):
         return attn.gqa_apply(mp, cfg, h, window=block.window, chunk=chunk)
+    if block.mixer == "mla":
+        return attn.mla_apply(mp, cfg, h, chunk=chunk)
     if block.mixer == "mamba2":
         return ssm.mamba2_apply(mp, cfg, h, chunk=min(64, chunk))
     if block.mixer == "rwkv6":
@@ -84,18 +80,25 @@ def _apply_mixer(mp: dict, cfg, block, h: Tensor, chunk: int) -> Tensor:
 
 def block_apply(
     p: dict, cfg, block, x: Tensor, *, shared_mixer: dict | None = None, chunk: int = 1024
-) -> Tensor:
+) -> tuple[Tensor, dict]:
+    """One block; returns (x, aux), aux the MoE metrics (``{}`` for a dense
+    or MLP-less block)."""
+    aux: dict = {}
     mp = shared_mixer if block.shared_attn else p["mixer"]
     x = x + _apply_mixer(mp, cfg, block, rmsnorm(p["norm1"], x, cfg.norm_eps), chunk)
     if block.mlp == "dense":
         x = x + mlp_apply(p["mlp"], rmsnorm(p["norm2"], x, cfg.norm_eps))
-    return x
+    elif block.mlp == "moe":
+        y, aux = moe_mod.moe_apply(p["moe"], cfg, rmsnorm(p["norm2"], x, cfg.norm_eps))
+        x = x + y
+    return x, aux
 
 
 def block_init_cache(cfg, block, batch: int, max_len: int, dtype, device) -> dict:
-    check_block(block)
     if block.mixer in ("gqa", "swa"):
         return attn.gqa_init_cache(cfg, batch, max_len, block.window, dtype, device)
+    if block.mixer == "mla":
+        return attn.mla_init_cache(cfg, batch, max_len, dtype, device)
     if block.mixer == "mamba2":
         return ssm.mamba2_init_cache(cfg, batch, dtype, device)
     if block.mixer == "rwkv6":
@@ -110,6 +113,8 @@ def block_decode(
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if block.mixer in ("gqa", "swa"):
         y, cache = attn.gqa_decode(mp, cfg, h, cache, length, window=block.window)
+    elif block.mixer == "mla":
+        y, cache = attn.mla_decode(mp, cfg, h, cache, length)
     elif block.mixer == "mamba2":
         y, cache = ssm.mamba2_decode(mp, cfg, h, cache, length)
     elif block.mixer == "rwkv6":
@@ -119,6 +124,12 @@ def block_decode(
     x = x + y
     if block.mlp == "dense":
         x = x + mlp_apply(p["mlp"], rmsnorm(p["norm2"], x, cfg.norm_eps))
+    elif block.mlp == "moe":
+        # the whole slot batch is one dispatch group, free slots included
+        h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        B = h2.shape[0]
+        y2, _ = moe_mod.moe_apply(p["moe"], cfg, h2.reshape(1, B, -1))
+        x = x + y2.reshape(B, 1, -1)
     return x, cache
 
 
@@ -141,8 +152,6 @@ def layers(cfg, tree: dict) -> list:
 
 
 def stack_init(gen: torch.Generator, cfg, dtype, device) -> dict:
-    for b in cfg.blocks:
-        check_block(b)
     # the shared mixer is drawn first, as the JAX package draws it
     shared = next((b for b in cfg.blocks if b.shared_attn), None)
     shared_attn = None if shared is None else mixer_init(gen, cfg, shared, dtype, device)
@@ -152,10 +161,15 @@ def stack_init(gen: torch.Generator, cfg, dtype, device) -> dict:
 
 
 def stack_apply(p: dict, cfg, x: Tensor, *, chunk: int = 1024) -> tuple[Tensor, dict]:
+    """Every block in layer order; returns (x, the blocks' aux summed in
+    f32)."""
     shared = p["shared_attn"]
+    aux: dict = {}
     for bp, b in zip(layers(cfg, p), cfg.blocks):
-        x = block_apply(bp, cfg, b, x, shared_mixer=shared, chunk=chunk)
-    return x, {}
+        x, a = block_apply(bp, cfg, b, x, shared_mixer=shared, chunk=chunk)
+        for k, v in a.items():
+            aux[k] = aux.get(k, 0.0) + v.float()
+    return x, aux
 
 
 def stack_init_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:

@@ -3,12 +3,14 @@ package's, on the CPU: ``ops.flash_attention`` runs its plain version here
 (``blockwise_attention``), held against the Pallas kernel in interpret mode and
 against the dense oracle over ``tests/test_kernels.py``'s cases, with that
 file's tolerances, and with the keywords the model never passes
-(``causal=False``, a caller's ``scale``). The bf16 kernel's arithmetic (P
-rounded to bf16 for P.V) is emulated here and held to the same references and
-to the JAX model's logits; its host-side plan is checked for every head dim.
-Inputs are made with numpy from a seed."""
+(``causal=False``, a caller's ``scale``), and at MLA's head dims (v narrower
+than q and k). The bf16 kernel's arithmetic (P rounded to bf16 for P.V) is
+emulated here and held to the same references and to the JAX model's logits;
+its host-side plan is checked for every (D, Dv) pair. Inputs are made with
+numpy from a seed."""
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,15 +18,18 @@ import torch
 from test_kernels import ATTN_CASES
 from test_torch_models import _pair, _tokens, bf16_tol
 
+import repro.configs as jm_configs
 import repro.models as jm
 from repro.kernels import flash_attention as jflash
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
+import repro_torch.configs as tm_configs
 import repro_torch.models as tm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as tattn
+from repro_torch.models.convert import params_from_jax
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -190,17 +195,18 @@ def wgmma_emulation(q, k, v, *, causal=True, window=0, scale=None):
     when None) applied to the f32 scores (in base 2, as the kernel's exp2), an
     online softmax over kv tiles of the plan's ``block_k`` keys with the
     -1e30 sentinel, the causal mask only when ``causal``, l summed from the
-    f32 P, and P rounded to bf16 before P.V."""
+    f32 P, and P rounded to bf16 before P.V (at v's own head dim)."""
     B, H, S, D = q.shape
+    Dv = v.shape[-1]
     G = H // k.shape[1]
-    bk = fa.wgmma_plan(D).block_k
+    bk = fa.wgmma_plan(D, Dv).block_k
     c = (D**-0.5 if scale is None else scale) * math.log2(math.e)
     qf = q.float()
     kf, vf = (x.repeat_interleave(G, dim=1).float() for x in (k, v))
     pos = torch.arange(S)
     m = torch.full((B, H, S), fa.NEG_INF)
     l = torch.zeros((B, H, S))
-    acc = torch.zeros((B, H, S, D))
+    acc = torch.zeros((B, H, S, Dv))
     for k0 in range(0, S, bk):
         u = qf @ kf[:, :, k0 : k0 + bk].transpose(-1, -2) * c
         pk = pos[k0 : k0 + bk]
@@ -219,10 +225,10 @@ def wgmma_emulation(q, k, v, *, causal=True, window=0, scale=None):
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
-def _emulated_attention(q, k, v, *, causal=True, window=0, chunk=1024):
+def _emulated_attention(q, k, v, *, causal=True, window=0, scale=None, chunk=1024):
     """:func:`wgmma_emulation` in the model layout, as ``ops.flash_attention``."""
     t = lambda x: x.transpose(1, 2)  # noqa: E731
-    return t(wgmma_emulation(t(q), t(k), t(v), causal=causal, window=window))
+    return t(wgmma_emulation(t(q), t(k), t(v), causal=causal, window=window, scale=scale))
 
 
 @pytest.mark.parametrize("case", ATTN_CASES)
@@ -270,22 +276,30 @@ def test_wgmma_arithmetic_in_gemma3_forward(monkeypatch):
     np.testing.assert_allclose(got.numpy(), want, **bf16_tol(want))
 
 
-@pytest.mark.parametrize("D", fa.HEAD_DIMS)
-def test_wgmma_plan_fits_every_head_dim(D):
-    """Every head dim gets a plan: whole 128-byte swizzled boxes of 64 bf16
-    columns, a kv tile the wgmma shapes take, a ring that fits the block's
-    shared memory, and one CTA per (128-row q tile, head, batch)."""
-    plan = fa.wgmma_plan(D)
-    assert plan.head_dim == D and plan.d_pad >= D and plan.d_pad % fa.BOX_COLS == 0
-    assert plan.d_pad - D < fa.BOX_COLS
+@pytest.mark.parametrize("D, Dv", fa.HEAD_DIMS)
+def test_wgmma_plan_fits_every_head_dim(D, Dv):
+    """Every (D, Dv) pair gets a plan: whole 128-byte swizzled boxes of 64
+    bf16 columns for q and k (D) and for v and o (Dv), a kv tile the wgmma
+    shapes take, a ring that fits the block's 227 KB of shared memory
+    (deepseek-v2's (192, 128) the largest: 48 KB of Q, a K ring of 96 KB
+    and a V ring of 64 KB), and one CTA per (128-row q tile, head, batch)."""
+    plan = fa.wgmma_plan(D, Dv)
+    assert (plan.head_dim, plan.v_head_dim) == (D, Dv)
+    for dim, pad in ((D, plan.d_pad), (Dv, plan.dv_pad)):
+        assert pad >= dim and pad % fa.BOX_COLS == 0 and pad - dim < fa.BOX_COLS
     assert plan.box_q == (64, 128) and plan.box_kv == (64, plan.block_k)
     assert plan.box_q[0] * 2 == 128  # bytes: the swizzle's span
     assert plan.block_k in (64, 128) and plan.stages >= 2
-    # f32 accumulators a consumer thread holds: O (64 x d_pad) and S (64 x block_k)
-    assert (plan.d_pad + plan.block_k) // 2 <= 192
-    assert plan.smem_bytes <= fa.SMEM_LIMIT
+    # f32 accumulators a consumer thread holds: O (64 x dv_pad) and S (64 x block_k)
+    assert (plan.dv_pad + plan.block_k) // 2 <= 192
+    assert plan.smem_bytes <= fa.SMEM_LIMIT == 227 * 1024
     q_tile = fa.BLOCK_Q * plan.d_pad * 2
-    assert plan.smem_bytes >= q_tile + 2 * plan.stages * plan.block_k * plan.d_pad * 2
+    ring = plan.stages * plan.block_k * (plan.d_pad + plan.dv_pad) * 2
+    # and the mbarriers (q; k full, v full, empty a slot) with 1024 bytes of alignment slack
+    assert plan.smem_bytes == q_tile + ring + 1024 + 8 * (1 + 3 * plan.stages)
+    if (D, Dv) == (192, 128):
+        assert (q_tile, ring) == (48 * 1024, 160 * 1024) and plan.d_pad // fa.BOX_COLS == 3
+    assert plan.block_k == (64 if Dv == 256 else 128)  # as before v had a head dim of its own
     for B, H, S in ((1, 4, 1), (2, 8, 77), (1, 32, 1000), (1, 4, 32768)):
         assert plan.grid(B, H, S) == math.ceil(S / 128) * H * B
 
@@ -293,4 +307,93 @@ def test_wgmma_plan_fits_every_head_dim(D):
 def test_wgmma_plan_rejects_other_head_dims():
     for D in (8, 48, 80, 192, 512):
         with pytest.raises(ValueError, match="head dim"):
-            fa.wgmma_plan(D)
+            fa.wgmma_plan(D, D)
+    for D, Dv in ((192, 192), (96, 48), (128, 64), (64, 128), (96, 128)):
+        with pytest.raises(ValueError, match="head dims"):
+            fa.wgmma_plan(D, Dv)
+
+
+# MLA's prefill attention: (B, S, H, D = qk_nope + qk_rope, Dv, window,
+# chunk); minicpm3-4b's and deepseek-v2's head dims at a short S, and the
+# smoke configs' (16 + 8, 16)
+MLA_CASES = [
+    (2, 64, 4, 96, 64, 0, 16),
+    (1, 128, 3, 192, 128, 0, 32),
+    (2, 96, 2, 24, 16, 0, 32),
+    (1, 128, 2, 96, 64, 40, 64),
+]
+
+
+@pytest.mark.parametrize("case", MLA_CASES)
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_port_flash_mla_dims_match_oracle_and_jax_blockwise(case, name):
+    """v narrower than q and k, MLA's scale (D**-0.5 of the whole q.k head),
+    causal: ``ops.flash_attention`` (the plain version here) and
+    ``flash_attention_hsd`` against the JAX package's dense oracle and its
+    ``blockwise_attention`` (what its MLA prefill runs). The Pallas kernel
+    takes one head dim for q, k and v, so it is no witness here."""
+    B, S, H, D, Dv, window, chunk = case
+    (q, k, v), (tq, tk, tv) = _inputs(sum(case), [(B, S, H, D), (B, S, H, D), (B, S, H, Dv)],
+                                      name)
+    scale = D**-0.5
+    got = ops.flash_attention(tq, tk, tv, window=window, scale=scale, chunk=chunk)
+    assert got.dtype == DTYPES[name][1] and tuple(got.shape) == (B, S, H, Dv)
+    t = lambda x: x.transpose(0, 2, 1, 3)  # noqa: E731
+    oracle = t(jref.flash_attention_ref(t(q), t(k), t(v), window=window, scale=scale))
+    twin = jattn.blockwise_attention(q, k, v, window=window, chunk=chunk, scale=scale)
+    np.testing.assert_allclose(_np(got), _np(oracle), **tol(name))
+    np.testing.assert_allclose(_np(got), _np(twin), **tol(name))
+    tt = lambda x: x.transpose(1, 2)  # noqa: E731
+    hsd = tt(fa.flash_attention_hsd(tt(tq), tt(tk), tt(tv), window=window, scale=scale,
+                                    chunk=chunk))
+    assert torch.equal(hsd, got)
+    mine = tt(ref.flash_attention_ref(tt(tq), tt(tk), tt(tv), window=window, scale=scale))
+    np.testing.assert_allclose(_np(mine), _np(oracle), **tol(name))
+
+
+@pytest.mark.parametrize("case", [c for c in MLA_CASES if (c[3], c[4]) in fa.HEAD_DIMS])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_arithmetic_mla_dims_match_oracle(case, causal):
+    """The emulated bf16 kernel at MLA's (D, Dv) pairs, with MLA's scale,
+    causal or not, fits the bf16 tolerance against the JAX package's dense
+    oracle and its blockwise twin."""
+    B, S, H, D, Dv, window, chunk = case
+    (q, k, v), (tq, tk, tv) = _inputs(sum(case) + 1,
+                                      [(B, S, H, D), (B, S, H, D), (B, S, H, Dv)], "bfloat16")
+    scale = D**-0.5
+    got = _emulated_attention(tq, tk, tv, causal=causal, window=window, scale=scale)
+    assert tuple(got.shape) == (B, S, H, Dv)
+    t = lambda x: x.transpose(0, 2, 1, 3)  # noqa: E731
+    oracle = t(jref.flash_attention_ref(t(q), t(k), t(v), causal=causal, window=window,
+                                        scale=scale))
+    np.testing.assert_allclose(_np(got), _np(oracle), **tol("bfloat16"))
+    if causal:
+        twin = jattn.blockwise_attention(q, k, v, window=window, chunk=chunk, scale=scale)
+        np.testing.assert_allclose(_np(got), _np(twin), **tol("bfloat16"))
+
+
+def test_wgmma_arithmetic_in_minicpm3_forward(monkeypatch):
+    """The emulated kernel in place of the attention of a minicpm3-4b
+    forward cut to width at its own MLA head dims (qk 64 + 32, v 64; two
+    layers, 4 heads) keeps the logits within the bound the bf16 forward is
+    held to against the JAX package."""
+    import dataclasses as dc
+
+    narrow = dict(d_model=64, vocab=512, n_heads=4, n_kv_heads=4, q_lora_rank=32,
+                  kv_lora_rank=32, d_ff=128, n_pattern_repeats=2)
+    jc = dc.replace(jm_configs.get_config("minicpm3-4b"), **narrow)
+    tc = dc.replace(tm_configs.get_config("minicpm3-4b"), **narrow)
+    jp = jm.init_params(jc, jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tc, "cpu")
+    tok = _tokens(jc)
+    want = np.asarray(jm.forward(jp, jc, jnp.asarray(tok))[0])
+    seen = []
+
+    def emulated(q, k, v, **kw):
+        seen.append((q.shape[-1], v.shape[-1]))
+        return _emulated_attention(q, k, v, **kw)
+
+    monkeypatch.setattr(tattn, "flash_attention", emulated)
+    got, _ = tm.forward(tp, tc, torch.from_numpy(tok).long())
+    assert seen == [(96, 64)] * 2
+    np.testing.assert_allclose(got.numpy(), want, **bf16_tol(want))

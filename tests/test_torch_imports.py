@@ -43,6 +43,9 @@ REQUIRED = [
     # the SSM slice
     "repro_torch.configs.zamba2_7b", "repro_torch.configs.rwkv6_3b",
     "repro_torch.kernels.ssd", "repro_torch.kernels.rwkv6", "repro_torch.models.ssm",
+    # the MLA and MoE slice
+    "repro_torch.configs.minicpm3_4b", "repro_torch.configs.deepseek_v2_lite_16b",
+    "repro_torch.configs.deepseek_v3_671b", "repro_torch.models.moe",
 ]
 
 

@@ -357,6 +357,162 @@ def test_flash_wrapper_rejects_bad_inputs():
         fa.flash_attention_hsd(q.half(), kv.half(), kv.half())
 
 
+# MLA's head dims: (D of q and k, Dv of v and o); minicpm3-4b and deepseek-v2
+MLA_DIMS = [(96, 64), (192, 128)]
+# (B, S, H, window, causal): odd batches and heads (H == KH, as MLA's), S a
+# multiple of 64 and of neither 64 nor 128 by way of the window, and the
+# S=4096 of chip_smoke's model checks; causal, windowed and not causal
+MLA_CASES = [
+    (3, 64, 5, 0, True), (3, 64, 5, 0, False), (3, 64, 5, 40, True),
+    (1, 384, 3, 0, True), (3, 384, 5, 100, True), (1, 384, 3, 130, False),
+    (1, 4096, 3, 0, True), (1, 4096, 3, 512, True), (1, 4096, 3, 0, False),
+]
+
+
+def _mla_qkv(case, D, Dv, dtype, seed):
+    B, S, H = case[:3]
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+                 for s in ((B, H, S, D), (B, H, S, D), (B, H, S, Dv)))
+
+
+@pytest.mark.parametrize("dims", MLA_DIMS)
+@pytest.mark.parametrize("case", MLA_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_mla_dims_match_plain(dims, case, dtype):
+    """Both kernels at Dv != D, with MLA's scale (D**-0.5 of the whole q·k
+    head), against the plain version and the dense oracle: the output is
+    (B, H, S, Dv) and every row within the kernel's tolerance."""
+    _need_card()
+    D, Dv = dims
+    B, S, H, window, causal = case
+    q, k, v = _mla_qkv(case, D, Dv, dtype, sum(case) + D)
+    kw = dict(causal=causal, window=window, scale=D**-0.5)
+    before = FLASH_KERNEL[dtype].launches
+    got = fa.flash_attention_hsd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FLASH_KERNEL[dtype].launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (B, H, S, Dv)
+    assert bool(torch.isfinite(got).all())
+    want = fa.flash_attention_plain(q, k, v, chunk=64, **kw)
+    assert ref.row_limit_ratio(got, want, FLASH_TOL[dtype]) <= 1.0
+    if S <= 384:
+        dense = ref.flash_attention_ref(q, k, v, **kw)
+        assert ref.row_limit_ratio(got, dense, FLASH_TOL[dtype]) <= 1.0
+
+
+@pytest.mark.parametrize("dims", MLA_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_kernel_mla_dims_unaligned_rows(dims, causal):
+    """At Dv != D, f32 q, k and v one element past a 16-byte boundary load
+    element by element and give the aligned result bit for bit."""
+    _need_card()
+    D, Dv = dims
+    case = (3, 300, 3, 50, causal)
+    q, k, v = _mla_qkv(case, D, Dv, torch.float32, D + 1)
+    kw = dict(causal=causal, window=50)
+    aligned = fa.flash_attention_hsd(q, k, v, **kw)
+    for un in ((_unaligned(q), k, v), (q, _unaligned(k), v), (q, k, _unaligned(v))):
+        assert torch.equal(fa.flash_attention_hsd(*un, **kw), aligned)
+    want = fa.flash_attention_plain(q, k, v, chunk=300, **kw)
+    assert ref.row_limit_ratio(aligned, want, FLASH_TOL[torch.float32]) <= 1.0
+
+
+@pytest.mark.parametrize("dims, dtype", [((96, 64), torch.float32), ((192, 128), torch.float32),
+                                         ((96, 64), torch.bfloat16)])
+def test_flash_narrow_v_equals_padded_v_bits(dims, dtype):
+    """An output column is a sum of its own, in an order that does not depend
+    on how many columns there are: at (D, Dv) a kernel gives bit for bit the
+    first Dv columns of V zero-padded to D, through the (D, D) instance (D =
+    96), or through (256, 256) with q and k zero-padded too (D = 192, f32:
+    the zero columns add exact zeros at the end of each score's sum, and the
+    f32 kernel's kv tiles are 64 keys at every D)."""
+    _need_card()
+    D, Dv = dims
+    q, k, v = _mla_qkv((3, 384, 3), D, Dv, dtype, D + 2)
+    Dp = D if (D, D) in fa.HEAD_DIMS else 256
+    pad = lambda x, n: torch.nn.functional.pad(x, (0, n - x.shape[-1])).contiguous()  # noqa: E731
+    kw = dict(window=100, scale=D**-0.5)  # the padded run keeps the unpadded head's scale
+    narrow = fa.flash_attention_hsd(q, k, v, **kw)
+    wide = fa.flash_attention_hsd(pad(q, Dp), pad(k, Dp), pad(v, Dp), **kw)
+    assert torch.equal(narrow, wide[..., :Dv])
+
+
+# digests of the Dv == D instances' outputs (bf16 and f32) on the inputs of
+# flash_bits, read on an NVIDIA H100 80GB HBM3 (CUDA 12.8, torch 2.11) from
+# the kernels as they were before v took a head dim of its own; the kernels
+# with Dv as a template parameter gave the same 28 digests in the same run
+DV_EQUAL_BITS = {
+    "D=16,bfloat16,causal=True,window=100": "9448054f09eb18f5",
+    "D=16,bfloat16,causal=False,window=0": "9eb684002e85c248",
+    "D=16,float32,causal=True,window=100": "f9c30f0629b941ff",
+    "D=16,float32,causal=False,window=0": "de7278eca6641230",
+    "D=32,bfloat16,causal=True,window=100": "42b9cf2558a521e2",
+    "D=32,bfloat16,causal=False,window=0": "6fdb08aebfa11027",
+    "D=32,float32,causal=True,window=100": "d51354eeb5cadbdd",
+    "D=32,float32,causal=False,window=0": "c35b1f94152368cb",
+    "D=64,bfloat16,causal=True,window=100": "5518c206b47f0206",
+    "D=64,bfloat16,causal=False,window=0": "8faacc2e1c4119ab",
+    "D=64,float32,causal=True,window=100": "ededb0539024bc81",
+    "D=64,float32,causal=False,window=0": "31651e74efa325bf",
+    "D=96,bfloat16,causal=True,window=100": "18589146be8438e4",
+    "D=96,bfloat16,causal=False,window=0": "42f54e6ebac36a10",
+    "D=96,float32,causal=True,window=100": "0eef7b5de8147111",
+    "D=96,float32,causal=False,window=0": "9631e154cfdb83dd",
+    "D=112,bfloat16,causal=True,window=100": "95be189af376943b",
+    "D=112,bfloat16,causal=False,window=0": "67b29009c9d83e0f",
+    "D=112,float32,causal=True,window=100": "b36f3656582ae81c",
+    "D=112,float32,causal=False,window=0": "ae8b3e35f5bc7eb3",
+    "D=128,bfloat16,causal=True,window=100": "aa812c67e0b35096",
+    "D=128,bfloat16,causal=False,window=0": "542a5e29a3edac51",
+    "D=128,float32,causal=True,window=100": "11e53f5c3340beee",
+    "D=128,float32,causal=False,window=0": "9e7dae3b0acf4e04",
+    "D=256,bfloat16,causal=True,window=100": "47c674b794c75419",
+    "D=256,bfloat16,causal=False,window=0": "8d1e98501a0e1093",
+    "D=256,float32,causal=True,window=100": "39a43a3627724937",
+    "D=256,float32,causal=False,window=0": "8e03ad6a7dd298ac",
+}
+
+
+def flash_bits(module) -> dict[str, str]:
+    """sha256 of each Dv == D instance's output, both dtypes, on seeded
+    numpy inputs (causal with a window, and not causal), through
+    ``module.flash_attention_hsd``."""
+    import hashlib
+
+    out = {}
+    for D in (16, 32, 64, 96, 112, 128, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            rng = np.random.default_rng(D)
+            q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+                       for s in ((2, 4, 333, D), (2, 2, 333, D), (2, 2, 333, D)))
+            for causal, window in ((True, 100), (False, 0)):
+                o = module.flash_attention_hsd(q, k, v, causal=causal, window=window)
+                raw = o.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                key = f"D={D},{str(dtype)[6:]},causal={causal},window={window}"
+                out[key] = hashlib.sha256(raw).hexdigest()[:16]
+    return out
+
+
+def test_flash_dv_equal_d_instances_keep_their_bits():
+    """Every instance with Dv == D gives the bits it gave before V took a
+    head dim of its own (DV_EQUAL_BITS)."""
+    _need_card()
+    assert flash_bits(fa) == DV_EQUAL_BITS
+
+
+def test_flash_wrapper_rejects_other_dim_pairs():
+    """A (D, Dv) pair no instance is built for raises on the card; it does
+    not fall back to the plain version."""
+    _need_card()
+    for D, Dv in ((192, 192), (96, 48), (128, 64), (64, 128)):
+        q = torch.zeros(1, 2, 64, D, device="cuda", dtype=torch.bfloat16)
+        v = torch.zeros(1, 2, 64, Dv, device="cuda", dtype=torch.bfloat16)
+        for dtype in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError, match="head dims"):
+                fa.flash_attention_hsd(q.to(dtype), q.to(dtype), v.to(dtype))
+
+
 # the SSM scans: tests/test_kernels.py's SSD_CASES (B, S, H, P, N, chunk) and
 # RWKV_CASES (B, S, H, P, chunk), copied (that file imports JAX), then the
 # model heads at a short length: zamba2-7b (H=112, P=64, N=64, chunk 64),

@@ -3,6 +3,7 @@ against the JAX package's, on the CPU, from the *same* parameters: the JAX
 ``init_params`` tree carried over by ``params_from_jax``. Token inputs are made
 with numpy from a seed. Prefill attention runs the flash kernel's plain version
 here."""
+import contextlib
 import dataclasses
 
 import jax
@@ -22,7 +23,12 @@ from repro_torch.kernels import ops as tops
 from repro_torch.models import transformer
 from repro_torch.models.convert import params_from_jax
 
-ARCHS = ("gemma3-1b-smoke", "internlm2-1.8b-smoke", "zamba2-7b-smoke", "rwkv6-3b-smoke")
+ARCHS = ("gemma3-1b-smoke", "internlm2-1.8b-smoke", "zamba2-7b-smoke", "rwkv6-3b-smoke",
+         "minicpm3-4b-smoke", "deepseek-v2-lite-16b-smoke", "deepseek-v3-671b-smoke")
+MOE_AUX = ("moe_balance_loss", "moe_dropped_frac", "moe_router_zloss")
+# bf16 routing: the share of top-k choices in which the port's own router may
+# differ from the JAX package's (two of 256 at most on these inputs)
+MAX_ROUTE_FLIPS = 0.02
 B, S = 2, 32
 F32 = dict(rtol=1e-4, atol=1e-4)
 
@@ -37,9 +43,9 @@ def bf16_tol(want):
     return dict(rtol=2e-2, atol=2e-2 * float(np.abs(want).max()))
 
 
-def _pair(arch, dtype):
-    jc = dataclasses.replace(jconfigs.get_config(arch), dtype=dtype)
-    tc = dataclasses.replace(tconfigs.get_config(arch), dtype=dtype)
+def _pair(arch, dtype, **overrides):
+    jc = dataclasses.replace(jconfigs.get_config(arch), dtype=dtype, **overrides)
+    tc = dataclasses.replace(tconfigs.get_config(arch), dtype=dtype, **overrides)
     jp = jm.init_params(jc, jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tc, "cpu")
     return jc, tc, jp, tp
@@ -88,19 +94,86 @@ def f32_tol(jp, jc, tok, want, monkeypatch):
     return dict(rtol=1e-4, atol=max(1e-4, 2 * spread))
 
 
+@contextlib.contextmanager
+def reference_routing(monkeypatch, route: bool):
+    """With ``route``, the port's MoE blocks take the expert choices the JAX
+    run inside the context made, in call order, and ``flips`` counts the
+    choices in which the port's own router differed. bf16 needs this: a
+    one-ulp difference in a hidden state (XLA and PyTorch round the sums of
+    bf16 products in different places) flips the top-k of a near tie, and a
+    flipped choice moves a token's whole expert output. Yields ``(jax_run,
+    port_run)``: wrap each package's calls in its context."""
+    seen, flips = [], {"n": 0, "of": 0}
+    if not route:
+        yield contextlib.nullcontext, contextlib.nullcontext, flips
+        return
+    top_k, topk = jax.lax.top_k, torch.topk
+
+    def recording(x, k):
+        gates, idx = top_k(x, k)
+        jax.debug.callback(lambda a: seen.append(np.array(a)), idx, ordered=True)
+        return gates, idx
+
+    def replaying(probs, k, dim=-1):
+        own = topk(probs, k, dim=dim)[1]
+        ref = torch.from_numpy(seen.pop(0)).long()
+        flips["n"] += int((own != ref).sum())
+        flips["of"] += ref.numel()
+        return probs.gather(-1, ref), ref
+
+    @contextlib.contextmanager
+    def patched(obj, name, fn):
+        with monkeypatch.context() as m:
+            m.setattr(obj, name, fn)
+            yield
+        jax.effects_barrier()  # every recording callback has run
+
+    yield (lambda: patched(jax.lax, "top_k", recording),
+           lambda: patched(torch, "topk", replaying), flips)
+    assert not seen  # every recorded choice was replayed
+
+
+def check_aux(got: dict, want: dict, dtype: str) -> None:
+    """The MoE metrics of a forward: the JAX package's keys, and at f32 its
+    values within 1e-5 relative; at bf16 (the reference's routing) the same
+    dropped share and the router's f32 metrics within 1e-3 relative (its
+    input carries bf16 noise)."""
+    assert set(got) == set(want)
+    for k in want:
+        g, w = float(got[k]), float(want[k])
+        assert got[k].dtype == torch.float32 and np.isfinite(g)
+        rtol = 1e-5 if dtype == "float32" or k == "moe_dropped_frac" else 1e-3
+        np.testing.assert_allclose(g, w, rtol=rtol, err_msg=k)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_forward_and_prefill_match_jax(arch, dtype, monkeypatch):
+    """Logits, and for MoE models the aux, of ``forward`` and ``prefill``.
+    A MoE model at bf16 runs on the JAX run's expert choices
+    (:func:`reference_routing`), and its own router may differ from them in
+    at most MAX_ROUTE_FLIPS of the choices."""
     jc, tc, jp, tp = _pair(arch, dtype)
     tok = _tokens(jc)
-    want, _ = jm.forward(jp, jc, jnp.asarray(tok))
-    got, aux = tm.forward(tp, tc, torch.from_numpy(tok).long())
-    assert got.dtype == torch.float32 and tuple(got.shape) == (B, S, tc.vocab) and aux == {}
+    moe = jc.n_experts > 0
+    with reference_routing(monkeypatch, moe and dtype == "bfloat16") as (in_jax, in_port, flips):
+        with in_jax():
+            want, want_aux = jm.forward(jp, jc, jnp.asarray(tok))
+            want_last, want_last_aux = jm.prefill(jp, jc, jnp.asarray(tok))
+        with in_port():
+            got, aux = tm.forward(tp, tc, torch.from_numpy(tok).long())
+            got_last, last_aux = tm.prefill(tp, tc, torch.from_numpy(tok).long())
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, S, tc.vocab)
+    assert flips["n"] <= MAX_ROUTE_FLIPS * flips["of"]
+    if moe:
+        assert set(aux) == set(MOE_AUX)
+        check_aux(aux, want_aux, dtype)
+        check_aux(last_aux, want_last_aux, dtype)
+    else:
+        assert aux == {} and last_aux == {}
     want = np.asarray(want)
     tolerance = f32_tol(jp, jc, tok, want, monkeypatch) if dtype == "float32" else bf16_tol(want)
     np.testing.assert_allclose(got.numpy(), want, **tolerance)
-    want_last, _ = jm.prefill(jp, jc, jnp.asarray(tok))
-    got_last, _ = tm.prefill(tp, tc, torch.from_numpy(tok).long())
     assert tuple(got_last.shape) == (B, 1, tc.vocab)
     np.testing.assert_allclose(got_last.numpy(), np.asarray(want_last), **tolerance)
 
@@ -133,8 +206,13 @@ def test_zamba2_short_prompt_forward_matches_jax(seq, dtype, monkeypatch):
 def test_decode_matches_jax_and_own_forward(arch):
     """Teacher-forced decode at f32: each step's logits against the JAX
     package's decode step (1e-4), and the port's decode against its own
-    forward at 2e-3, as tests/test_arch_smoke.py holds the reference."""
-    jc, tc, jp, tp = _pair(arch, "float32")
+    forward at 2e-3, as tests/test_arch_smoke.py holds the reference; for a
+    MoE model at its drop-free capacity, as there (the forward dispatches a
+    sequence a group, decode the batch, so the two drop different choices
+    at the configured capacity)."""
+    cfg = tconfigs.get_config(arch)
+    drop_free = dict(capacity_factor=float(cfg.n_experts / cfg.top_k)) if cfg.n_experts else {}
+    jc, tc, jp, tp = _pair(arch, "float32", **drop_free)
     tok = _tokens(jc, seed=1, shape=(B, 16))
     jcache = jm.init_cache(jc, B, 16)
     step = jax.jit(lambda p, c, t: jm.decode_step(p, jc, c, t))
@@ -195,12 +273,23 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
-@pytest.mark.parametrize(
-    "arch", ["deepseek-v3-671b-smoke", "minicpm3-4b-smoke", "deepseek-v2-lite-16b-smoke"]
-)
-def test_unported_blocks_raise_with_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(tconfigs.get_config(arch), 0, device="cpu")
+@pytest.mark.parametrize("name", sorted(tconfigs.list_configs()))
+def test_every_config_initialises_with_its_parameter_count(name):
+    """Every registered config, full size and smoke, initialises in the port
+    (on the meta device: shapes without storage, so deepseek-v3-671b's 671 B
+    parameters cost nothing) with exactly ``param_count()`` parameters, each
+    layer's leaves in the JAX package's layout."""
+    cfg = tconfigs.get_config(name)
+    p = tm.init_params(cfg, torch.Generator(), device="meta")
+    n = sum(t.numel() for t in _leaves(p)) - sum(t.numel() for t in _leaves(p["stack"]))
+    n += sum(t.numel() for bp in transformer.layers(cfg, p["stack"]) for t in _leaves(bp))
+    n += sum(t.numel() for t in _leaves(p["stack"]["shared_attn"]))
+    assert n == cfg.param_count()
+    for bp, b in zip(transformer.layers(cfg, p["stack"]), cfg.blocks):
+        assert {"moe": "moe", "dense": "mlp"}.get(b.mlp, "norm1") in bp
+        if b.mlp == "moe":
+            assert tuple(bp["moe"]["w_up"].shape) == (cfg.n_experts, cfg.d_model, cfg.moe_d_ff)
+            assert bp["moe"]["router"].dtype == torch.float32
 
 
 def test_shared_attention_is_one_parameter_set():

@@ -31,11 +31,15 @@ def _requests(module, vocab, seed):
 
 
 @pytest.mark.parametrize(
-    "arch", ["gemma3-1b-smoke", "internlm2-1.8b-smoke", "zamba2-7b-smoke", "rwkv6-3b-smoke"]
+    "arch", ["gemma3-1b-smoke", "internlm2-1.8b-smoke", "zamba2-7b-smoke", "rwkv6-3b-smoke",
+             "minicpm3-4b-smoke", "deepseek-v2-lite-16b-smoke"]
 )
 def test_engine_tokens_equal_jax(arch):
     """For the SSM archs a recycled slot must also have its recurrent state
-    (conv window, SSD and wkv states, token shift) zeroed on admission."""
+    (conv window, SSD and wkv states, token shift) zeroed on admission. The
+    MLA archs decode over the latent cache; deepseek-v2-lite's MoE blocks
+    dispatch the whole slot batch as one group at every tick, free slots
+    included, as the JAX engine does."""
     _engines_serve_equal_tokens(arch)
 
 
@@ -93,6 +97,19 @@ def test_serve_cli_on_cpu(capsys):
 
 @pytest.mark.parametrize("arch", ["zamba2-7b-smoke", "rwkv6-3b-smoke"])
 def test_serve_cli_on_cpu_ssm(arch, capsys):
+    out = serve.main(
+        ["--arch", arch, "--requests", "5", "--slots", "2", "--max-len", "40", "--device", "cpu"]
+    )
+    assert out["requests"] == 5 and out["tokens"] > 0 and out["ticks"] > 0
+    assert "served 5 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize(
+    "arch", ["minicpm3-4b-smoke", "deepseek-v2-lite-16b-smoke", "deepseek-v3-671b-smoke"]
+)
+def test_serve_cli_on_cpu_mla(arch, capsys):
+    """The MLA archs, with dense (minicpm3) and MoE MLPs (deepseek), serve
+    from the command line."""
     out = serve.main(
         ["--arch", arch, "--requests", "5", "--slots", "2", "--max-len", "40", "--device", "cpu"]
     )
