@@ -85,11 +85,30 @@ Phases, in the order they run, each failing hard:
    but the model's allowance of positions (a MoE model at its drop-free
    capacity for this check, as the JAX package's tests hold it: the forward
    dispatches the prompt as one group, decode each token). A profiler
-   window over 24 ticks shows the device's busy share.
-7. Placement: ``place_job`` places ``examples/serve_cluster.py``'s five
+   window over 8 ticks shows the device's busy share.
+7. Training: each kernel's ``autograd.Function`` (the kernel forward, the
+   plain version's gradient: the JAX package has no backward kernel) against
+   the plain version under autograd, bf16 and f32: flash attention at
+   ``tests/test_kernels.py``'s shapes, MLA's (96, 64) and (192, 128) and
+   internlm2-1.8b's training batch (B=4, S=2048, 16/8 heads, D=128), each
+   causal at its window and not causal with scale 0.1; the SSD and RWKV-6
+   scans at the kernel tests' cases and zamba2-7b's and rwkv6-3b's heads at
+   S=4096. The Function's output must equal the kernel's and every input
+   gradient the plain version's, bit for bit, for a seeded output gradient;
+   each gradient's gap to the f32 plain gradient is read. Then
+   ``repro_torch.launch.train.main`` trains internlm2-1.8b (1,889,110,016
+   parameters, bf16, f32 AdamW moments, remat) at full width and depth for
+   8 steps at B=4, S=2048 on the synthetic pipeline, lr 3e-3: every loss
+   finite, the last below the first; ms a step, tokens/s and peak memory are
+   printed. One step through the kernels and one from a copy of the same
+   state through the plain versions: their loss and gradient-norm gaps held
+   to ``TRAIN_LIMITS``, the largest updated-parameter gap read, and no
+   gradient all zeros where the plain path's is not; a further kernel step
+   is profiled.
+8. Placement: ``place_job`` places ``examples/serve_cluster.py``'s five
    stage graphs on an 8x8 torus through the JRBA kernel and on the CPU:
    assignments, routes, bandwidths and spans must be identical.
-8. JRBA kernel against plain: every JRBA program that the port's
+9. JRBA kernel against plain: every JRBA program that the port's
    ``OnlineScheduler`` solves (OTFS and OTFA, k=3, all 12 scenarios, seeds
    0-1, 8 jobs) is replayed through the CUDA kernel (``solver="cuda"``) and
    through its plain PyTorch version (``solver="sparse"``), both on the
@@ -101,7 +120,7 @@ Phases, in the order they run, each failing hard:
    steps, the time per step, and the latency floor: those steps times one
    step's minimum dependent chain, timed by the source's one-warp
    microbenchmark (``jrba_congestion.step_floor_ms``).
-9. Fleet: a 256-lane async-built fleet (the fleet families plus
+10. Fleet: a 256-lane async-built fleet (the fleet families plus
    ``wan-mesh-xl`` and ``edge-mesh-flash``, drift churn on every 4th lane,
    ``n_jobs=4``, ``n_iters=250``) runs under the lockstep and the async
    runtime on a ``solver="cuda"`` engine: records must be identical, every
@@ -121,7 +140,9 @@ SSD: zamba2-7b's, 68; bf16 RWKV-6: rwkv6-3b's, 32); the S=4096 prefills and
 serving loops (whose decode is plain PyTorch) not at all. The f32 flash
 kernel's path is gemma3-1b's f32 prefill at S=4096 (26 launches), the f32
 SSD kernel's zamba2-7b's at its f32 depth (23), the f32 RWKV-6 kernel's
-rwkv6-3b's (32).
+rwkv6-3b's (32). A full-width internlm2-1.8b train step launches the bf16
+flash kernel exactly 48 times (24 layers, forward and remat's recompute; 384
+in the 8-step entry-point run), its plain-path step none.
 ``flash_attention_hsd.launches``, ``ssd_scan_hsd.launches`` and
 ``rwkv6_scan_hsd.launches`` each count their two kernels, and each must
 equal their sum on every path. A bf16 RWKV-6 call counts one launch however
@@ -160,6 +181,7 @@ from repro_torch.core import SCENARIOS, JRBAEngine, OnlineScheduler, torus_netwo
 from repro_torch.core.graph import NetworkGraph  # noqa: E402
 from repro_torch.core.jrba import sparse_batch_inputs  # noqa: E402
 from repro_torch.core.placement import place_job, stage_graph  # noqa: E402
+from repro_torch.data import DataConfig, synthetic_batch  # noqa: E402
 from repro_torch.fleet import FLEET_SCENARIOS, FleetRuntime, build_async_fleet  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -167,10 +189,17 @@ from repro_torch.kernels import jrba_congestion as jc  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rwkv6 as rw  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
-from repro_torch.kernels.ref import row_limit_ratio, rwkv6_sequential, ssd_sequential  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    row_limit_ratio, rwkv6_sequential, same_bits, ssd_sequential)
+from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import decode_step, forward, init_cache, init_params, prefill  # noqa: E402
+from repro_torch.models.transformer import pick_chunk  # noqa: E402
+from repro_torch.optim import AdamWConfig, apply_updates  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
+from repro_torch.train import TrainConfig, init_train_state  # noqa: E402
+from repro_torch.train.train_step import loss_and_grads  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map, tree_paths  # noqa: E402
 
 K = 3
 STREAM_ITERS = 400
@@ -462,6 +491,9 @@ FLASH_SHAPES = [
     (1, 4096, 4, 1, 256, 0),
     (1, 4096, 16, 8, 128, 0),
 ]
+# internlm2-1.8b's training batch: the shape of each of a full-width train
+# step's 48 launches (training phase), bf16
+TRAIN_FLASH_SHAPE = (4, 2048, 16, 8, 128, 0)
 # the keywords the model never passes: (shape, causal, scale); small shapes,
 # then internlm2-1.8b's at S=4096, bf16 and f32 each
 FLASH_KEYWORD_CASES = [
@@ -581,6 +613,7 @@ def flash_phase(device) -> list[dict]:
     for shape in FLASH_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             out.append(flash_case(shape, dtype, device, reps=10))
+    out.append(flash_case(TRAIN_FLASH_SHAPE, torch.bfloat16, device, reps=10))
     short, full = ZAMBA_FLASH_SHAPES
     out.append(flash_case(short, torch.float32, device, reps=5))
     out += [flash_case(s, torch.bfloat16, device, reps=3) for s in (short, full)]
@@ -790,6 +823,9 @@ LIMITS = {
                                  decode_f32=6e-6, route_flips=0.2),
 }
 DECODE_LEN = 64  # the f32 decode-vs-forward prompt
+# ticks of each serving phase's profile window: 8, cut from 24 to keep the
+# run under 700 s (PERF.md 4); ms a tick and the busy share are still read
+PROFILE_TICKS = 8
 # zamba2-7b's short prefill check: a prompt under 64 tokens whose SSD chunk
 # (min(64, pick_chunk(S)) = 48) has no tile instance of its own
 SHORT_LEN = 48
@@ -968,7 +1004,7 @@ def prefill_phase(arch: str, device, card) -> tuple:
     t0 = time.perf_counter()
     params = init_params(cfg, SEED, device=device)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _tensors(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     assert n_params == cfg.param_count(), (n_params, cfg.param_count())
     log(f"[prefill] {arch}: {n_params} parameters initialised on the card in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1038,17 +1074,6 @@ def prefill_phase(arch: str, device, card) -> tuple:
     return cfg, params, by_path, plain_logits
 
 
-def _tensors(tree):
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensors(v)
-
-
 def serving_phase(arch: str, cfg, params, device, card) -> dict:
     """Returns each kernel's launches by path."""
     spec = SERVING[arch]
@@ -1088,6 +1113,7 @@ def serving_phase(arch: str, cfg, params, device, card) -> dict:
     log(f"[serve] {json.dumps(stats)} [{card}]")
     # teacher-forced decode of one prompt against the kernel-path forward:
     # what ties the recurrent decode to the kernels
+    t0 = time.perf_counter()
     toks = torch.tensor([requests[0].prompt], device=device)
     expect = FORWARD_LAUNCHES[arch]
     check = drop_free(cfg)
@@ -1101,24 +1127,18 @@ def serving_phase(arch: str, cfg, params, device, card) -> dict:
     routes.check(f"{arch} decode on the forward's choices", LIMITS[arch].get("route_flips", 0.0))
     logits_close(f"{arch} decode vs forward", dec, fwd, LIMITS[arch]["decode"],
                  min_top1=1 - LIMITS[arch]["flips"] / n)
+    log(f"[time] {arch} decode vs forward check {time.perf_counter() - t0:.1f} s")
     # a window of steady serving: every slot busy, prefilling and decoding
+    t0 = time.perf_counter()
     eng = ServingEngine(cfg, params, slots=spec["slots"], max_len=spec["max_len"], device=device)
     for r in requests[: spec["slots"]]:
         eng.submit(Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens))
     eng.tick()  # admit
-    profile_window(f"{arch} serving, 24 ticks", card, lambda: [eng.tick() for _ in range(24)])
+    profile_window(f"{arch} serving, {PROFILE_TICKS} ticks", card,
+                   lambda: [eng.tick() for _ in range(PROFILE_TICKS)])
+    log(f"[time] {arch} serving profile window {time.perf_counter() - t0:.1f} s")
     return {name: {f"{arch}:serving": s_counts[name], f"{arch}:forward_{n}": f_counts[name]}
             for name in expect}
-
-
-def tree_map(fn, tree):
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return tree
 
 
 def decode_logits(params, cfg, toks, device):
@@ -1252,7 +1272,229 @@ def f32_phase(arch: str, cfg, params, device, card, bf16_plain=None) -> tuple[di
 
 
 # ---------------------------------------------------------------------------
-# phase 7: ENTS placement of model stage graphs
+# phase 7: training
+# ---------------------------------------------------------------------------
+# the kernel Functions' gradient checks: tests/test_kernels.py's attention
+# shapes (B, S, H, KH, D, Dv, window), MLA's head dims and internlm2-1.8b's
+# training shape; each causal at its window, then not causal with scale 0.1
+GRAD_FLASH_SHAPES = [
+    (1, 128, 4, 4, 64, 64, 0), (2, 256, 8, 2, 64, 64, 0), (1, 256, 4, 1, 128, 128, 0),
+    (2, 256, 4, 2, 64, 64, 96), (1, 512, 2, 2, 32, 32, 128), (1, 128, 2, 2, 96, 96, 0),
+    (1, 256, 4, 4, 96, 64, 0), (1, 256, 4, 4, 192, 128, 0),  # minicpm3-4b's, deepseek-v2's MLA
+    (4, 2048, 16, 8, 128, 128, 0),  # internlm2-1.8b's training batch
+]
+# the scans at tests/test_kernels.py's cases and the models' heads at S=4096
+GRAD_SSD_SHAPES = [*SSD_CASES[:4], SSD_MODEL[1]]
+GRAD_RWKV_SHAPES = [*RWKV_CASES, RWKV_MODEL[1]]
+TRAIN_ARCH = "internlm2-1.8b"  # the reference trainer's family, at full width and depth
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_STEPS = 8
+# the reference driver's default; of 3e-3, 1e-3, 3e-4 and 1e-4, the only one
+# whose 8th loss was below the first on the H100 (PERF.md section 6). The
+# gate is weak: from seed 1 the 8th loss is above the first at this lr
+# (scripts/torch_train_probe.py); the kernel-vs-plain step holds the trainer
+TRAIN_LR = 3e-3
+# a step's bf16 flash launches: 24 attention layers, each in the forward and
+# again in remat's recompute
+TRAIN_LAUNCHES = {"flash_attention_wgmma": 48}
+# kernel path against plain path, one step from the same state and batch:
+# relative gaps of the loss and the gradient norm, 3-4x the gaps read on the
+# H100 (1.37e-4 and 3.25e-4; PERF.md section 2)
+TRAIN_LIMITS = {"loss": 5e-4, "grad_norm": 1e-3}
+
+
+def grad_row_share(got: torch.Tensor, want: torch.Tensor) -> tuple[float, int]:
+    """The largest ``|got - want|`` over the root mean square of its row
+    (last axis) of ``want``, over the entries finite in both, and the count
+    of the others."""
+    g, w = got.float(), want.float()
+    finite = torch.isfinite(g) & torch.isfinite(w)
+    g, w = torch.where(finite, g, 0.0), torch.where(finite, w, 0.0)
+    rms = w.square().mean(dim=-1, keepdim=True).sqrt().clamp_min(1e-30)
+    return float(((g - w).abs() / rms).max()), int((~finite).sum())
+
+
+def grad_case(label: str, function, hsd, plain, args, kw: dict, seed: int, card: str) -> dict:
+    """A kernel Function against the plain version on the card: its output
+    must equal the kernel's and each input's gradient autograd's through the
+    plain version, bit for bit, for a seeded output gradient. Read, not
+    held: each gradient's largest gap to the f32 plain version's (inputs
+    upcast) as a share of its row's RMS, and the entries that are not finite
+    in either (the SSD plain version's masked exp overflows above a chunk's
+    diagonal where its decays sum past f32's range; the JAX twin's gradient
+    is NaN there too)."""
+    ins = [a.detach().clone().requires_grad_() for a in args]
+    out = function.apply(*ins, kw)
+    with torch.no_grad():
+        kernel_out = hsd(*args, **kw)
+    gen = torch.Generator(device=args[0].device).manual_seed(seed)
+    cot = torch.randn(out.shape, generator=gen, device=args[0].device).to(out.dtype)
+    got = torch.autograd.grad(out, ins, cot)
+    ref_in = [a.detach().clone().requires_grad_() for a in args]
+    want = torch.autograd.grad(plain(*ref_in, **kw), ref_in, cot)
+    f32_in = [a.detach().float().requires_grad_() for a in args]
+    f32 = torch.autograd.grad(plain(*f32_in, **kw), f32_in, cot.float())
+    torch.cuda.synchronize()
+    shares = [grad_row_share(g, w) for g, w in zip(got, f32)]
+    rec = {"case": label, "output_equal": same_bits(out.detach(), kernel_out),
+           "grads_equal": [same_bits(g, w) for g, w in zip(got, want)],
+           "f32_row_share": max(s for s, _ in shares),
+           "non_finite": sum(n for _, n in shares)}
+    log(f"[grad] {json.dumps(rec)} [{card}]")
+    assert rec["output_equal"], f"{label}: the Function's output is not the kernel's"
+    assert all(rec["grads_equal"]), f"{label}: gradients differ from the plain version's"
+    return rec
+
+
+def grad_checks(device, card) -> int:
+    """Every kernel Function's gradient check; returns the count of cases."""
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for B, S, H, KH, D, Dv, window in GRAD_FLASH_SHAPES:
+            gen = torch.Generator(device=device).manual_seed(SEED + S + H + D)
+            q = torch.randn((B, H, S, D), generator=gen, device=device).to(dtype)
+            k = torch.randn((B, KH, S, D), generator=gen, device=device).to(dtype)
+            v = torch.randn((B, KH, S, Dv), generator=gen, device=device).to(dtype)
+            for causal, win, scale in ((True, window, None), (False, 0, 0.1)):
+                kw = dict(causal=causal, window=win, scale=scale, chunk=pick_chunk(S))
+                grad_case(f"flash {(B, S, H, KH, D, Dv)} causal={causal} window={win} "
+                          f"scale={scale} {name}", fa.FlashAttention, fa.flash_attention_hsd,
+                          fa.flash_attention_plain, (q, k, v), kw, SEED + n, card)
+                n += 1
+            del q, k, v
+        for shape in GRAD_SSD_SHAPES:
+            x, dt, A, Bm, Cm = scan_inputs("ssd_scan", shape, dtype, device)
+            grad_case(f"ssd {shape} {name}", ssd.SSDScan, ssd.ssd_scan_hsd, ssd.ssd_scan_plain,
+                      (x.transpose(1, 2), dt.transpose(1, 2), A, Bm, Cm),
+                      dict(chunk=shape[-1]), SEED + n, card)
+            n += 1
+        for shape in GRAD_RWKV_SHAPES:
+            r, k, v, logw, u = scan_inputs("rwkv6_scan", shape, dtype, device)
+            grad_case(f"rwkv6 {shape} {name}", rw.RWKV6Scan, rw.rwkv6_scan_hsd,
+                      rw.rwkv6_scan_plain, (*(t.transpose(1, 2) for t in (r, k, v, logw)), u),
+                      dict(chunk=shape[-1]), SEED + n, card)
+            n += 1
+        torch.cuda.empty_cache()
+    return n
+
+
+def train_batch(cfg, device) -> dict:
+    """Step 0 of the synthetic data pipeline (seed 0) at the training shape."""
+    dcfg = DataConfig(vocab=cfg.vocab, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED)
+    return {k: torch.from_numpy(v).to(device) for k, v in synthetic_batch(dcfg, 0).items()}
+
+
+def train_opt(cfg) -> AdamWConfig:
+    """``launch/train.py``'s AdamW settings for a TRAIN_STEPS run."""
+    return AdamWConfig(lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 20, 1),
+                       total_steps=TRAIN_STEPS, moment_dtype=cfg.optimizer_state_dtype,
+                       factored_second_moment=cfg.optimizer_factored)
+
+
+def entry_point_run(device, card) -> tuple[dict, dict]:
+    """``launch/train.py`` at full width for TRAIN_STEPS steps, exactly
+    TRAIN_LAUNCHES bf16 flash launches a step: finite losses, the last below
+    the first. Returns its record and its launches."""
+    argv = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--log-every", "1",
+            "--seed", str(SEED)]
+    expect = {k: n * TRAIN_STEPS for k, n in TRAIN_LAUNCHES.items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out, counts = counted_all(f"{TRAIN_ARCH} launch.train.main, {TRAIN_STEPS} steps (main path)",
+                              expect, train_driver.main, argv)
+    seconds = time.perf_counter() - t0
+    losses = out["losses"]
+    assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+    steady = sorted(out["step_seconds"][1:])[len(out["step_seconds"][1:]) // 2]
+    rec = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "lr": TRAIN_LR, "losses": losses, "call_s": seconds,
+           "first_step_ms": out["step_seconds"][0] * 1e3, "ms_per_step": steady * 1e3,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+           "launches": counts["flash_attention_wgmma"]}
+    log(f"[train] {json.dumps(rec)} [{card}]")
+    return rec, counts
+
+
+def train_step_once(state, cfg, opt, batch):
+    """One train step, keeping its gradients: what ``make_train_step``'s step
+    runs (``loss_and_grads``, then ``apply_updates``)."""
+    grads, metrics = loss_and_grads(state["params"], cfg, TrainConfig(), batch)
+    _, state["opt"], opt_metrics = apply_updates(opt, state["params"], grads, state["opt"])
+    return grads, {k: float(v) for k, v in {**metrics, **opt_metrics}.items()}
+
+
+def kernel_vs_plain_step(device, card) -> dict:
+    """One full-width step through the kernels and one, from a copy of the
+    same state, through their plain versions: exactly TRAIN_LAUNCHES bf16
+    flash launches on the first, none on the second; the loss and
+    gradient-norm gaps held to TRAIN_LIMITS, the largest updated-parameter
+    gap read; no gradient all zeros where the plain path's is not. Then one
+    further kernel step profiled. Returns the launches by path."""
+    cfg = get_config(TRAIN_ARCH)
+    opt = train_opt(cfg)
+    state = init_train_state(cfg, opt, SEED, device=device)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    batch = train_batch(cfg, device)
+    plain_state = tree_map(lambda t: t.detach().clone().requires_grad_(t.requires_grad), state)
+    (k_grads, k_metrics), k_counts = counted_all(
+        f"{TRAIN_ARCH} train step (kernel)", TRAIN_LAUNCHES, train_step_once, state, cfg, opt,
+        batch)
+    with plain_kernels():
+        (p_grads, p_metrics), _ = counted_all(f"{TRAIN_ARCH} train step (plain)", {},
+                                              train_step_once, plain_state, cfg, opt, batch)
+    zero = [i for i, (g, w) in enumerate(zip(tree_leaves(k_grads), tree_leaves(p_grads)))
+            if not bool(g.any()) and bool(w.any())]
+    assert not zero, f"{len(zero)} gradients all zero on the kernel path only"
+    grad_gap, grad_at = max(
+        (float((g.float() - w.float()).abs().max()) / float(w.float().abs().max()), path)
+        for (path, g), (_, w) in zip(tree_paths(k_grads), tree_paths(p_grads)))
+    param_gap = max(float((a.detach().float() - b.detach().float()).abs().max()) for a, b in
+                    zip(tree_leaves(state["params"]), tree_leaves(plain_state["params"])))
+    gaps = {k: abs(k_metrics[k] - p_metrics[k]) / abs(p_metrics[k]) for k in TRAIN_LIMITS}
+    rec = {"kernel": {k: k_metrics[k] for k in ("loss", "grad_norm", "clip_scale", "lr")},
+           "plain": {k: p_metrics[k] for k in ("loss", "grad_norm")}, "gaps": gaps,
+           "limits": TRAIN_LIMITS, "largest_grad_gap_share": grad_gap, "at": grad_at,
+           "largest_param_gap": param_gap, "param_gap_over_lr": param_gap / k_metrics["lr"],
+           "launches": k_counts["flash_attention_wgmma"]}
+    log(f"[train] {TRAIN_ARCH} kernel vs plain step: {json.dumps(rec)} [{card}]")
+    for k, limit in TRAIN_LIMITS.items():
+        assert gaps[k] <= limit, f"{TRAIN_ARCH} train step: {k} gap {gaps[k]} > {limit}"
+    del plain_state, p_grads, k_grads
+    torch.cuda.empty_cache()
+    profile_window(f"{TRAIN_ARCH} train step, B={TRAIN_BATCH} S={TRAIN_SEQ}", card,
+                   train_step_once, state, cfg, opt, batch)
+    del state
+    torch.cuda.empty_cache()
+    return {"flash_attention_wgmma": {f"{TRAIN_ARCH}:train_step": k_counts[
+        "flash_attention_wgmma"], f"{TRAIN_ARCH}:train_step_plain": 0}}
+
+
+def training_phase(device, card) -> dict:
+    """The kernel Functions' gradients, the entry point at full width, and a
+    kernel-path step against a plain-path step. Returns the launches by
+    path."""
+    t0 = time.perf_counter()
+    n = grad_checks(device, card)
+    log(f"[time] {n} kernel gradient checks {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec, counts = entry_point_run(device, card)
+    log(f"[time] {TRAIN_ARCH} entry point {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths = kernel_vs_plain_step(device, card)
+    log(f"[time] {TRAIN_ARCH} kernel vs plain step and profile {time.perf_counter() - t0:.1f} s")
+    paths["flash_attention_wgmma"][f"{TRAIN_ARCH}:train_main_{TRAIN_STEPS}_steps"] = counts[
+        "flash_attention_wgmma"]
+    return paths, rec
+
+
+# ---------------------------------------------------------------------------
+# phase 8: ENTS placement of model stage graphs
 # ---------------------------------------------------------------------------
 # examples/serve_cluster.py's jobs: (arch, pipeline stages)
 PLACEMENT_JOBS = [
@@ -1378,7 +1620,7 @@ def scan_record(name: str, timings: list[dict], launches: int, by_path: dict,
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the scheduler's program stream through the kernel and the plain version
+# phase 9: the scheduler's program stream through the kernel and the plain version
 # ---------------------------------------------------------------------------
 class CapturingEngine(JRBAEngine):
     """Records every (net, flows, capacity) solve request it serves."""
@@ -1641,7 +1883,7 @@ def stream_phase(device, kernel_solver: str, plain_solver: str, *, seeds, n_jobs
 
 
 # ---------------------------------------------------------------------------
-# phase 9: fleets
+# phase 10: fleets
 # ---------------------------------------------------------------------------
 def max_record_dev(results_a, results_b) -> float:
     """Worst relative deviation between two runs' job records: zero only when
@@ -1755,6 +1997,10 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
         log(f"[time] after {arch} serving and f32 phases {time.perf_counter() - t_start:.1f} s")
+    train_paths, train_record = training_phase(device, card)
+    for name, counts in train_paths.items():
+        model_paths[name].update(counts)
+    log(f"[time] after training phase {time.perf_counter() - t_start:.1f} s")
     placement_launches = placement_phase(device)
     record, by_path = stream_phase(device, "cuda", "sparse", seeds=(0, 1), n_jobs=8)
     log(f"[time] after stream phase {time.perf_counter() - t_start:.1f} s")

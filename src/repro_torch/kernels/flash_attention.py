@@ -21,7 +21,9 @@ the kernels do not take; both are built for the ``(D, Dv)`` pairs of
 Each launcher counts its own launches (``.launches``), and
 ``flash_attention_hsd.launches`` counts both. On a CPU tensor the wrapper runs
 the plain version, :func:`blockwise_attention`, the online-softmax twin that
-the JAX model runs where the TPU would run the kernel. Both kernels replace
+the JAX model runs where the TPU would run the kernel. :class:`FlashAttention`
+adds the gradient for training: the kernel's forward, the plain version's
+backward (the JAX package has no backward kernel). Both kernels replace
 the TPU kernel ``_flash_kernel`` / ``flash_attention_hsd`` of the JAX
 package; their source notes say what bounds them on Hopper and how the
 designs answer that.
@@ -34,11 +36,14 @@ import dataclasses
 import torch
 
 from . import _build
+from .grad import plain_gradients
 
 __all__ = [
+    "FlashAttention",
     "HEAD_DIMS",
     "WgmmaPlan",
     "blockwise_attention",
+    "check_shapes",
     "flash_attention_f32",
     "flash_attention_hsd",
     "flash_attention_plain",
@@ -111,7 +116,6 @@ def wgmma_plan(D: int, Dv: int) -> WgmmaPlan:
                      block_k=64 if dv_pad == 256 else 128, stages=2)
 
 
-@torch.no_grad()
 def blockwise_attention(
     q: torch.Tensor,  # (B, S, H, Dk)
     k: torch.Tensor,  # (B, S, KH, Dk)
@@ -124,7 +128,8 @@ def blockwise_attention(
 ) -> torch.Tensor:
     """Blockwise attention, causal or not, with an online softmax over
     (chunk, chunk) tiles, skipping kv tiles outside the causal/window band;
-    model layout ``(B, S, H, D)``. The plain version of the kernel."""
+    model layout ``(B, S, H, D)``. The plain version of the kernel, and
+    differentiable: its gradient is the kernel's (:class:`FlashAttention`)."""
     B, S, H, Dk = q.shape
     KH, Dv = k.shape[2], v.shape[-1]
     G = H // KH
@@ -179,12 +184,30 @@ def flash_attention_plain(
     scale: float | None = None,
     chunk: int = 1024,
 ) -> torch.Tensor:
-    """:func:`blockwise_attention` in the kernel's heads-major layout."""
+    """:func:`blockwise_attention` in the kernel's heads-major layout, on the
+    inputs the kernels take (:func:`check_shapes`)."""
+    check_shapes(q, k, v)
     out = blockwise_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         window=window, chunk=chunk, scale=scale, causal=causal,
     )
     return out.transpose(1, 2)
+
+
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise unless q, k and v are 4-D, heads-major, with Sq == Skv and H a
+    multiple of KH: what the kernels and, on every device, the wrappers
+    take."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k and v must be 4-D, got {tuple(q.shape)}, {tuple(k.shape)} "
+                         f"and {tuple(v.shape)}")
+    S, H, KH = q.shape[2], q.shape[1], k.shape[1]
+    if k.shape[2] != S:
+        # the TPU kernel aligns the causal mask top-left, its dense oracle
+        # bottom-right; the model only attends with Sq == Skv
+        raise ValueError(f"Sq={S} != Skv={k.shape[2]}: the kernel takes Sq == Skv only")
+    if KH < 1 or H % KH:
+        raise ValueError(f"H={H} is not a multiple of KH={KH}")
 
 
 def _check(name: str, x: torch.Tensor, like: torch.Tensor, shape: tuple) -> None:
@@ -253,17 +276,9 @@ def flash_attention_hsd(
     scaled by ``scale`` (``D**-0.5`` when None). A CUDA ``q`` launches the
     bf16 or the f32 kernel; a CPU one runs the plain version with tiles of
     ``chunk`` (which must divide S; the kernels ignore it)."""
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"q, k and v must be 4-D, got {tuple(q.shape)}, {tuple(k.shape)} "
-                         f"and {tuple(v.shape)}")
+    check_shapes(q, k, v)
     B, H, S, D = q.shape
-    KH, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
-    if Skv != S:
-        # the TPU kernel aligns the causal mask top-left, its dense oracle
-        # bottom-right; the model only attends with Sq == Skv
-        raise ValueError(f"Sq={S} != Skv={Skv}: the kernel takes Sq == Skv only")
-    if KH < 1 or H % KH:
-        raise ValueError(f"H={H} is not a multiple of KH={KH}")
+    KH, Dv = k.shape[1], v.shape[-1]
     scale = D**-0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale,
@@ -290,6 +305,23 @@ def flash_attention_hsd(
         flash_attention_f32(q, k, v, out, causal=bool(causal), window=window, scale=scale)
     flash_attention_hsd.launches += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention_hsd`'s forward (the same checks, launch and
+    counts) with :func:`flash_attention_plain`'s gradient, recomputed from
+    the saved inputs (``kernels/grad.py``). ``kw`` holds ``causal``,
+    ``window``, ``scale`` and ``chunk``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw: dict):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = kw
+        return flash_attention_hsd(q, k, v, **kw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return plain_gradients(ctx, flash_attention_plain, grad_out)
 
 
 flash_attention_hsd.launches = 0  # both kernels

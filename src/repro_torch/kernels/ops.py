@@ -3,18 +3,32 @@
 The models are sequence-major ``(B, S, H, D)``, the kernels heads-major
 ``(B, H, S, D)``. The attention wrapper transposes into contiguous copies; the
 scan kernels read strided views, so their wrappers hand them transposed views
-and transpose the result back without a copy. Each kernel wrapper launches its
-CUDA kernel on a CUDA tensor and runs its plain version on a CPU tensor.
+and transpose the result back without a copy.
+
+Each wrapper routes by device (:func:`_route`): on a CPU tensor it runs the
+kernel's plain version, differentiable as it is; on a CUDA tensor it launches
+the kernel through the kernel's ``autograd.Function`` (the kernel's forward,
+the plain version's gradient), which builds no graph under ``no_grad`` or
+when no input requires a gradient. On the card nothing runs the plain version
+in the forward, and an input the kernels do not take raises.
 """
 from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention_hsd
-from .rwkv6 import MAX_CHUNK, rwkv6_scan_hsd
-from .ssd import ssd_scan_hsd
+from .flash_attention import FlashAttention, flash_attention_plain
+from .rwkv6 import MAX_CHUNK, RWKV6Scan, rwkv6_scan_plain
+from .ssd import SSDScan, ssd_scan_plain
 
 __all__ = ["flash_attention", "rwkv6_scan", "ssd_scan"]
+
+
+def _route(plain, function, args: tuple, kw: dict) -> torch.Tensor:
+    """``plain`` on a CPU tensor; on a CUDA one ``function``: the kernel's
+    forward, the plain version's gradient."""
+    if args[0].device.type == "cpu":
+        return plain(*args, **kw)
+    return function.apply(*args, kw)
 
 
 def flash_attention(
@@ -31,16 +45,10 @@ def flash_attention(
     ``causal=False`` (sliding-window when ``window > 0``), scores scaled by
     ``scale`` (``D**-0.5`` when None); ``chunk`` tiles the plain version
     only."""
-    out = flash_attention_hsd(
-        q.transpose(1, 2).contiguous(),
-        k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(),
-        causal=causal,
-        window=window,
-        scale=scale,
-        chunk=chunk,
-    )
-    return out.transpose(1, 2)
+    args = tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = dict(causal=causal, window=window, scale=scale, chunk=chunk)
+    return _route(flash_attention_plain, FlashAttention, args, kw
+                  ).transpose(1, 2)
 
 
 def ssd_scan(
@@ -53,8 +61,8 @@ def ssd_scan(
     chunk: int = 64,
 ) -> torch.Tensor:
     """The Mamba-2 SSD scan in the model layout; ``y (B, S, H, P)``."""
-    y = ssd_scan_hsd(x.transpose(1, 2), dt.transpose(1, 2), A, Bm, Cm, chunk=chunk)
-    return y.transpose(1, 2)
+    args = (x.transpose(1, 2), dt.transpose(1, 2), A, Bm, Cm)
+    return _route(ssd_scan_plain, SSDScan, args, dict(chunk=chunk)).transpose(1, 2)
 
 
 def rwkv6_scan(
@@ -68,5 +76,6 @@ def rwkv6_scan(
 ) -> torch.Tensor:
     """The RWKV-6 wkv scan in the model layout; ``y (B, S, H, P)``. The chunk
     defaults to 16 and may not exceed it (see ``kernels/rwkv6.py``)."""
-    t = lambda a: a.transpose(1, 2)  # noqa: E731
-    return t(rwkv6_scan_hsd(t(r), t(k), t(v), t(logw), u, chunk=chunk))
+    args = (*(a.transpose(1, 2) for a in (r, k, v, logw)), u)
+    return _route(rwkv6_scan_plain, RWKV6Scan, args, dict(chunk=chunk)
+                  ).transpose(1, 2)

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["flash_attention_ref", "row_limit_ratio", "rwkv6_sequential", "ssd_sequential"]
+__all__ = ["flash_attention_ref", "row_limit_ratio", "rwkv6_sequential", "same_bits",
+           "ssd_sequential"]
 
 
 def flash_attention_ref(
@@ -97,3 +98,9 @@ def row_limit_ratio(
     rms = want.square().mean(dim=-1, keepdim=True).sqrt()
     limit = (rtol * want.abs() + atol * rms).clamp_min(torch.finfo(torch.float32).tiny)
     return float(((got - want).abs() / limit).max())
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit patterns (NaNs included) in the same dtype and shape."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return a.dtype == b.dtype and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))

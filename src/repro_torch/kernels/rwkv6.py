@@ -29,9 +29,11 @@ Each launcher counts its own launches, one a call however many grids it
 runs (``rwkv6_scan_mma.launches``, ``rwkv6_scan_f32.launches``), and
 ``rwkv6_scan_hsd.launches`` counts both. The kernels read strided views, so
 ``ops.rwkv6_scan`` hands them transposed model-layout tensors without a copy.
-On a CPU tensor the wrapper runs the plain version. The kernels replace the
-TPU kernel ``_rwkv6_kernel`` / ``rwkv6_scan_hsd`` of the JAX package and, like
-it, return ``y`` only.
+On a CPU tensor the wrapper runs the plain version. :class:`RWKV6Scan` adds the
+gradient for training: the kernel's forward, the plain version's backward (the
+JAX package has no backward kernel). The kernels replace the TPU kernel
+``_rwkv6_kernel`` / ``rwkv6_scan_hsd`` of the JAX package and, like it, return
+``y`` only.
 """
 from __future__ import annotations
 
@@ -40,11 +42,12 @@ import ctypes
 import torch
 
 from . import _build
+from .grad import plain_gradients
 from .ssd import check_operand, empty_in_layout, rows_16b
 
 __all__ = [
-    "MAX_CHUNK", "rwkv6_chunked", "rwkv6_scan_f32", "rwkv6_scan_hsd", "rwkv6_scan_mma",
-    "rwkv6_scan_plain", "segment_chunks", "value_cols",
+    "MAX_CHUNK", "RWKV6Scan", "check_chunk", "rwkv6_chunked", "rwkv6_scan_f32",
+    "rwkv6_scan_hsd", "rwkv6_scan_mma", "rwkv6_scan_plain", "segment_chunks", "value_cols",
 ]
 
 MAX_CHUNK = 16  # exp(-cw) stays finite in f32 only up to Q=16
@@ -57,7 +60,6 @@ TARGET_WARPS = 2048
 MIN_SEGMENT_CHUNKS = 16
 
 
-@torch.no_grad()
 def rwkv6_chunked(
     r: torch.Tensor,  # (B, S, H, P)
     k: torch.Tensor,
@@ -107,8 +109,22 @@ def rwkv6_chunked(
     return y.to(r.dtype), s
 
 
+def check_chunk(r: torch.Tensor, chunk: int) -> None:
+    """Raise for a chunk above :data:`MAX_CHUNK` (on every device) or an r
+    that is not 4-D."""
+    if chunk > MAX_CHUNK:
+        raise ValueError(
+            f"chunk {chunk} > {MAX_CHUNK}: exp(-cumsum(logw)) overflows f32 beyond Q={MAX_CHUNK}"
+        )
+    if r.dim() != 4:
+        raise ValueError(f"r must be 4-D, got {tuple(r.shape)}")
+
+
 def rwkv6_scan_plain(r, k, v, logw, u, *, chunk: int = MAX_CHUNK) -> torch.Tensor:
-    """:func:`rwkv6_chunked` in the kernel's heads-major layout, ``y`` only."""
+    """:func:`rwkv6_chunked` in the kernel's heads-major layout, ``y`` only,
+    with the wrappers' chunk limit; differentiable, its gradient is the
+    kernel's (:class:`RWKV6Scan`)."""
+    check_chunk(r, chunk)
     t = lambda a: a.transpose(1, 2)  # noqa: E731
     y, _ = rwkv6_chunked(t(r), t(k), t(v), t(logw), u, chunk=chunk)
     return t(y)
@@ -190,12 +206,7 @@ def rwkv6_scan_hsd(
     length ``min(chunk, S)``. Raises for ``chunk > 16`` on every device. A
     CUDA ``r`` launches the bf16 or the f32 kernel; a CPU one runs the plain
     version."""
-    if chunk > MAX_CHUNK:
-        raise ValueError(
-            f"chunk {chunk} > {MAX_CHUNK}: exp(-cumsum(logw)) overflows f32 beyond Q={MAX_CHUNK}"
-        )
-    if r.dim() != 4:
-        raise ValueError(f"r must be 4-D, got {tuple(r.shape)}")
+    check_chunk(r, chunk)
     B, H, S, P = r.shape
     Q = min(chunk, S)
     if r.device.type == "cpu":
@@ -221,6 +232,23 @@ def rwkv6_scan_hsd(
         rwkv6_scan_f32(r, k, v, logw, u, y, Q)
     rwkv6_scan_hsd.launches += 1
     return y
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """:func:`rwkv6_scan_hsd`'s forward (the same checks, launch and counts)
+    with :func:`rwkv6_scan_plain`'s gradient for r, k, v, logw and u,
+    recomputed from the saved inputs in their own dtypes (logw and u f32;
+    ``kernels/grad.py``). ``kw`` holds ``chunk``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, kw: dict):
+        ctx.save_for_backward(r, k, v, logw, u)
+        ctx.kw = kw
+        return rwkv6_scan_hsd(r, k, v, logw, u, **kw)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        return plain_gradients(ctx, rwkv6_scan_plain, grad_y)
 
 
 rwkv6_scan_hsd.launches = 0  # both kernels

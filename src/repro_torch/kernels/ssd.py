@@ -27,7 +27,9 @@ Each launcher counts its own launches (``ssd_scan_mma.launches``,
 ``ssd_scan_f32.launches``), and ``ssd_scan_hsd.launches`` counts both. The
 kernels read strided views (only the last axis must be dense), so the
 model-layout wrapper ``ops.ssd_scan`` hands them transposed views and no copy
-is made. On a CPU tensor the wrapper runs the plain version. The kernels
+is made. On a CPU tensor the wrapper runs the plain version.
+:class:`SSDScan` adds the gradient for training: the kernel's forward, the
+plain version's backward (the JAX package has no backward kernel). The kernels
 replace the TPU kernel ``_ssd_kernel`` / ``ssd_scan_hsd`` of the JAX package
 and, like it, return ``y`` only.
 """
@@ -38,10 +40,11 @@ import ctypes
 import torch
 
 from . import _build
+from .grad import plain_gradients
 
 __all__ = [
-    "CHUNKS", "block_cols", "chunk_tile", "empty_in_layout", "ssd_chunked",
-    "ssd_scan_f32", "ssd_scan_hsd", "ssd_scan_mma", "ssd_scan_plain",
+    "CHUNKS", "SSDScan", "block_cols", "check_ranks", "chunk_tile", "empty_in_layout",
+    "ssd_chunked", "ssd_scan_f32", "ssd_scan_hsd", "ssd_scan_mma", "ssd_scan_plain",
 ]
 
 CHUNKS = (16, 32, 64, 128)  # the kernels' tile instances, in rows
@@ -49,7 +52,6 @@ MAX_STATE = 64  # N: both kernels pad the state's rows to 64
 DTYPES = (torch.bfloat16, torch.float32)
 
 
-@torch.no_grad()
 def ssd_chunked(
     x: torch.Tensor,  # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H)  (post-softplus)
@@ -104,8 +106,17 @@ def ssd_chunked(
     return y.to(x.dtype), h
 
 
+def check_ranks(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor) -> None:
+    """Raise unless x, dt and B are 4-, 3- and 3-D (heads-major)."""
+    if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 3:
+        raise ValueError(f"x, dt and B must be 4-, 3- and 3-D, got {x.dim()}, {dt.dim()}, "
+                         f"{Bm.dim()}")
+
+
 def ssd_scan_plain(x, dt, A, Bm, Cm, *, chunk: int = 64) -> torch.Tensor:
-    """:func:`ssd_chunked` in the kernel's heads-major layout, ``y`` only."""
+    """:func:`ssd_chunked` in the kernel's heads-major layout, ``y`` only;
+    differentiable, its gradient is the kernel's (:class:`SSDScan`)."""
+    check_ranks(x, dt, Bm)
     y, _ = ssd_chunked(x.transpose(1, 2), dt.transpose(1, 2), A, Bm, Cm, chunk=chunk)
     return y.transpose(1, 2)
 
@@ -221,9 +232,7 @@ def ssd_scan_hsd(
     ``x`` launches the bf16 or the f32 kernel with chunk length
     ``min(chunk, S)``, any length up to 128 that divides S (the JAX twin's
     contract: S % Q raises there too); a CPU one runs the plain version."""
-    if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 3:
-        raise ValueError(f"x, dt and B must be 4-, 3- and 3-D, got {x.dim()}, {dt.dim()}, "
-                         f"{Bm.dim()}")
+    check_ranks(x, dt, Bm)
     B, H, S, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -250,6 +259,23 @@ def ssd_scan_hsd(
         ssd_scan_f32(x, dt, A, Bm, Cm, y, Q)
     ssd_scan_hsd.launches += 1
     return y
+
+
+class SSDScan(torch.autograd.Function):
+    """:func:`ssd_scan_hsd`'s forward (the same checks, launch and counts)
+    with :func:`ssd_scan_plain`'s gradient for x, dt, A, B and C, recomputed
+    from the saved inputs in their own dtypes (dt and A f32;
+    ``kernels/grad.py``). ``kw`` holds ``chunk``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, kw: dict):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.kw = kw
+        return ssd_scan_hsd(x, dt, A, Bm, Cm, **kw)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        return plain_gradients(ctx, ssd_scan_plain, grad_y)
 
 
 ssd_scan_hsd.launches = 0  # both kernels

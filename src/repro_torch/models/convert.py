@@ -12,8 +12,11 @@ is, whatever its block: MLA's (``q_down``/``q_norm``/``q_up`` or ``wq``,
 ``kv_down``, ``kv_norm``, ``kv_up``, ``wo``) and MoE's (the f32 ``router``,
 ``w_up``/``w_gate``/``w_down`` stacked over the experts, the ``shared``
 experts' MLP), a group-stacked leaf losing only its leading group axis. bf16
-leaves (numpy's ``bfloat16`` extension type) are carried bit for bit.
-Nothing here imports JAX.
+leaves (numpy's ``bfloat16`` extension type) are carried bit for bit. A
+train state's ``mtp_proj`` (the MTP head) is carried when it is there.
+
+``models/transformer.py::reference_leaves`` goes the other way. Nothing here
+imports JAX.
 """
 from __future__ import annotations
 
@@ -57,8 +60,9 @@ def params_from_jax(tree: dict, cfg, device="cuda") -> dict:
             else _tree(stack["shared_attn"], device),
         },
     }
-    if "unembed" in tree:
-        out["unembed"] = tensor_from_numpy(tree["unembed"], device)
+    for name in ("unembed", "mtp_proj"):
+        if name in tree:
+            out[name] = tensor_from_numpy(tree[name], device)
     return out
 
 

@@ -107,17 +107,39 @@ def embed_apply(table: Tensor, tokens: Tensor) -> Tensor:
     return table[tokens]
 
 
+class MixedUnembed(torch.autograd.Function):
+    """``x2 @ table.T`` from bf16 operands into f32 logits in one product
+    (``torch.mm(..., out_dtype=float32)``, which has no derivative of its
+    own), with the gradient autograd gives the bf16 product cast to f32: the
+    f32 logit gradient is rounded to the operands' dtype, then ``dx = g @
+    table`` and ``dtable = g.T @ x2``. Neither pass copies the table to
+    f32."""
+
+    @staticmethod
+    def forward(ctx, x2: Tensor, table: Tensor) -> Tensor:
+        ctx.save_for_backward(x2, table)
+        return torch.mm(x2, table.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        x2, table = ctx.saved_tensors
+        g = grad.to(x2.dtype)
+        dx = g @ table if ctx.needs_input_grad[0] else None
+        dtable = g.t() @ x2 if ctx.needs_input_grad[1] else None
+        return dx, dtable
+
+
 def unembed_apply(table: Tensor, x: Tensor) -> Tensor:
     """Logits in f32 from the (possibly bf16) operands, never rounded to the
     operands' type: greedy argmax over a 262144-entry vocab ties often at
     bf16. On the card a bf16 table goes through one mixed-precision product
-    (``out_dtype=float32``) and is never copied to f32; on the CPU, where
+    (:class:`MixedUnembed`) and is never copied to f32; on the CPU, where
     that product does not exist, the operands are upcast (bf16 products are
     exact in f32)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda" and table.dtype != torch.float32:
-        out = torch.mm(x2, table.t(), out_dtype=torch.float32)
+        out = MixedUnembed.apply(x2, table)
     else:
         out = x2.float() @ table.float().t()
     return out.reshape(*lead, table.shape[0])

@@ -8,9 +8,11 @@ embeddings and logits cover the text positions only, so ``seq_len`` always
 means the *total* sequence the backbone processes. ``forward_hidden``,
 ``forward`` and ``prefill`` return the aux the JAX package's return: the MoE
 blocks' ``moe_balance_loss``, ``moe_dropped_frac`` and ``moe_router_zloss``,
-each summed over the layers in f32 (``{}`` for a model without MoE). Everything
-runs under ``torch.no_grad``: the port serves, it does not train yet (ROADMAP
-A8).
+each summed over the layers in f32 (``{}`` for a model without MoE).
+``forward_hidden`` and ``forward`` are differentiable (``train/train_step.py``
+takes their gradients; they build no graph unless a parameter requires one);
+``init_params``, ``init_cache``, ``decode_step`` and ``prefill`` run under
+``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -65,7 +67,6 @@ def _embed_inputs(p: dict, cfg, tokens: Tensor, frontend_embeds: Tensor | None) 
     return x
 
 
-@torch.no_grad()
 def forward_hidden(
     p: dict, cfg, tokens: Tensor, frontend_embeds: Tensor | None = None
 ) -> tuple[Tensor, dict]:
@@ -78,7 +79,6 @@ def forward_hidden(
     return x, aux
 
 
-@torch.no_grad()
 def forward(
     p: dict,
     cfg,

@@ -4,7 +4,8 @@ The layout is the JAX package's: ``prefix`` blocks, ``n_pattern_repeats``
 groups of ``cfg.pattern`` blocks, ``suffix`` blocks. The JAX package stacks
 each group's parameters and runs the groups as one ``lax.scan`` (with remat);
 here ``groups`` is a list of per-group tuples and a Python loop walks the
-blocks in layer order (inference only, so nothing is rematerialized). Its
+blocks in layer order, rematerializing the same units as the JAX package
+when a gradient is taken (``stack_apply``). Its
 ``models/hints.py`` (GSPMD sharding pins for the scan carry) has no
 counterpart on one card. Zamba-style shared attention keeps one mixer
 parameter set at ``stack["shared_attn"]`` (``None`` for every other model);
@@ -24,6 +25,7 @@ import torch
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
+from ..tree import tree_leaves, tree_paths
 from .layers import mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
 Tensor = torch.Tensor
@@ -151,6 +153,30 @@ def layers(cfg, tree: dict) -> list:
     return [*tree["prefix"], *(e for group in tree["groups"] for e in group), *tree["suffix"]]
 
 
+def reference_leaves(tree: dict) -> list[tuple[str, list, bool]]:
+    """The JAX package's leaves for a tree in the port's layout, in its
+    flattening order, as ``(path, tensors, stacked)``: a leaf outside the
+    pattern groups is the one port tensor at that path; a group leaf
+    (``stack/groups/<i>/...``, ``stacked``) is the stack of pattern position
+    i's tensor over the groups, in group order. Tests carry JAX trees over
+    with ``models/convert.py``; the optimizer reads this to treat each tensor
+    as the JAX package treats its leaf.
+    Paths are joined with ``/`` as ``train/checkpoint.py`` keys them."""
+    out = []
+    for key in sorted(tree):
+        if key != "stack":
+            out += [(path, [t], False) for path, t in tree_paths(tree[key], key)]
+            continue
+        stack = tree["stack"]
+        for part in sorted(stack):
+            if part != "groups":
+                out += [(path, [t], False) for path, t in tree_paths(stack[part], f"stack/{part}")]
+            elif stack["groups"]:
+                per_group = [dict(tree_paths(group, "stack/groups")) for group in stack["groups"]]
+                out += [(path, [g[path] for g in per_group], True) for path in per_group[0]]
+    return out
+
+
 def stack_init(gen: torch.Generator, cfg, dtype, device) -> dict:
     # the shared mixer is drawn first, as the JAX package draws it
     shared = next((b for b in cfg.blocks if b.shared_attn), None)
@@ -160,15 +186,41 @@ def stack_init(gen: torch.Generator, cfg, dtype, device) -> dict:
     return p
 
 
+def _sum_aux(total: dict, aux: dict) -> dict:
+    for k, v in aux.items():
+        total[k] = total.get(k, 0.0) + v.float()
+    return total
+
+
 def stack_apply(p: dict, cfg, x: Tensor, *, chunk: int = 1024) -> tuple[Tensor, dict]:
     """Every block in layer order; returns (x, the blocks' aux summed in
-    f32)."""
+    f32). With ``cfg.remat``, when a gradient can flow (grad mode on, and
+    ``x`` or a parameter requires one), the units the JAX package
+    wraps in ``jax.checkpoint`` are rematerialized: each prefix and suffix
+    block on its own and each pattern group as one unit keep only their
+    input, and run again in the backward (``torch.utils.checkpoint``,
+    non-reentrant)."""
     shared = p["shared_attn"]
+
+    def unit(params: list, blocks: tuple, x: Tensor) -> tuple[Tensor, dict]:
+        aux: dict = {}
+        for bp, b in zip(params, blocks):
+            x, a = block_apply(bp, cfg, b, x, shared_mixer=shared, chunk=chunk)
+            aux = _sum_aux(aux, a)
+        return x, aux
+
+    units = [([bp], (b,)) for bp, b in zip(p["prefix"], cfg.prefix)]
+    units += [(list(group), cfg.pattern) for group in p["groups"]]
+    units += [([bp], (b,)) for bp, b in zip(p["suffix"], cfg.suffix)]
+    remat = cfg.remat and torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in tree_leaves(p)))
     aux: dict = {}
-    for bp, b in zip(layers(cfg, p), cfg.blocks):
-        x, a = block_apply(bp, cfg, b, x, shared_mixer=shared, chunk=chunk)
-        for k, v in a.items():
-            aux[k] = aux.get(k, 0.0) + v.float()
+    for params, blocks in units:
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(unit, params, blocks, x, use_reentrant=False)
+        else:
+            x, a = unit(params, blocks, x)
+        aux = _sum_aux(aux, a)
     return x, aux
 
 

@@ -25,6 +25,7 @@ bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
 assert not bad, bad
 assert not _build.load.cache_info().currsize, "importing built a kernel"
+assert "msgpack" not in sys.modules and "zstandard" not in sys.modules, "eager checkpoint deps"
 print(len(names))
 """
 
@@ -46,6 +47,12 @@ REQUIRED = [
     # the MLA and MoE slice
     "repro_torch.configs.minicpm3_4b", "repro_torch.configs.deepseek_v2_lite_16b",
     "repro_torch.configs.deepseek_v3_671b", "repro_torch.models.moe",
+    # the training slice
+    "repro_torch.tree", "repro_torch.kernels.grad", "repro_torch.optim",
+    "repro_torch.optim.adamw", "repro_torch.optim.compression", "repro_torch.train",
+    "repro_torch.train.losses", "repro_torch.train.train_step", "repro_torch.train.checkpoint",
+    "repro_torch.train.fault_tolerance", "repro_torch.data", "repro_torch.data.pipeline",
+    "repro_torch.launch.train",
 ]
 
 

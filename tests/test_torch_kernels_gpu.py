@@ -896,3 +896,107 @@ def test_scan_wrappers_reject_bad_inputs():
             rw.rwkv6_scan_hsd(t(r), t(k), t(v), t(logw), u, chunk=chunk)
     with pytest.raises(ValueError, match="chunk"):  # 12 does not divide S=64
         rw.rwkv6_scan_hsd(t(r), t(k), t(v), t(logw), u, chunk=12)
+
+
+# ---------------------------------------------------------------------------
+# gradients: each kernel's Function is the kernel forward with the plain
+# version's gradient (kernels/grad.py), bit for bit at the same inputs
+# ---------------------------------------------------------------------------
+def _function_matches_plain(function, hsd, plain, kernel, args, kw, seed):
+    """The Function's output equals the kernel's (one launch, none in the
+    backward) and every input's gradient equals autograd's through the plain
+    version, bit for bit, for a seeded output gradient."""
+    with torch.no_grad():
+        kernel_out = hsd(*args, **kw)
+    ins = [a.detach().clone().requires_grad_() for a in args]
+    before = kernel.launches
+    out = function.apply(*ins, kw)
+    assert kernel.launches == before + 1
+    assert ref.same_bits(out.detach(), kernel_out)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cot = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    got = torch.autograd.grad(out, ins, cot)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1  # the backward launches nothing
+    ref_in = [a.detach().clone().requires_grad_() for a in args]
+    want = torch.autograd.grad(plain(*ref_in, **kw), ref_in, cot)
+    for g, w, a in zip(got, want, args):
+        assert g.dtype == a.dtype and ref.same_bits(g, w)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[:6])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_function_gradient_is_the_plain_versions(case, dtype):
+    """tests/test_kernels.py's shapes, causal with the case's window."""
+    _need_card()
+    B, S, H, KH, D, window = case
+    rng = np.random.default_rng(S + H + D)
+    q = _cuda(rng, (B, H, S, D), dtype)
+    k, v = _cuda(rng, (B, KH, S, D), dtype), _cuda(rng, (B, KH, S, D), dtype)
+    kw = dict(causal=True, window=window, scale=None, chunk=64)
+    _function_matches_plain(fa.FlashAttention, fa.flash_attention_hsd, fa.flash_attention_plain,
+                            FLASH_KERNEL[dtype], (q, k, v), kw, seed=S)
+
+
+@pytest.mark.parametrize("case", SSD_CASES[:4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_function_gradient_is_the_plain_versions(case, dtype):
+    _need_card()
+    x, dt, A, Bm, Cm = _ssd_args(case, dtype)
+    args = (x.transpose(1, 2), dt.transpose(1, 2), A, Bm, Cm)
+    kernel = ssd.ssd_scan_mma if dtype == torch.bfloat16 else ssd.ssd_scan_f32
+    _function_matches_plain(ssd.SSDScan, ssd.ssd_scan_hsd, ssd.ssd_scan_plain, kernel, args,
+                            dict(chunk=case[-1]), seed=case[1])
+
+
+@pytest.mark.parametrize("case", RWKV_CASES[:4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rwkv6_function_gradient_is_the_plain_versions(case, dtype):
+    _need_card()
+    r, k, v, logw, u = _rwkv_args(case, dtype)
+    args = (*(a.transpose(1, 2) for a in (r, k, v, logw)), u)
+    kernel = rw.rwkv6_scan_mma if dtype == torch.bfloat16 else rw.rwkv6_scan_f32
+    _function_matches_plain(rw.RWKV6Scan, rw.rwkv6_scan_hsd, rw.rwkv6_scan_plain, kernel, args,
+                            dict(chunk=case[-1]), seed=case[1])
+
+
+def test_ops_take_the_function_only_when_a_gradient_is_wanted():
+    """On the card the model-layout wrapper launches the kernel through
+    ``FlashAttention`` either way, and builds a graph only when an input
+    requires a gradient and grad mode is on."""
+    _need_card()
+    rng = np.random.default_rng(4)
+    q, k, v = (_cuda(rng, (1, 128, 2, 64), torch.bfloat16) for _ in range(3))
+    before = fa.flash_attention_wgmma.launches
+    assert ops.flash_attention(q, k, v).grad_fn is None
+    q.requires_grad_()
+    out = ops.flash_attention(q, k, v)
+    assert "FlashAttention" in type(out.grad_fn.next_functions[0][0]).__name__ or \
+        "FlashAttention" in type(out.grad_fn).__name__
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).grad_fn is None
+    assert fa.flash_attention_wgmma.launches == before + 3
+
+
+def test_unembed_backward_matches_the_f32_products():
+    """``unembed_apply`` on bf16 operands on the card (``MixedUnembed``): the
+    f32 logits of the upcast product, and gradients within bf16 rounding of
+    autograd through the f32 product (1e-2 of each gradient's largest
+    entry): the logit gradient rounded to bf16, then bf16 products."""
+    from repro_torch.models.layers import unembed_apply
+
+    _need_card()
+    rng = np.random.default_rng(9)
+    x = _cuda(rng, (2, 64, 256), torch.bfloat16).requires_grad_()
+    table = _cuda(rng, (1000, 256), torch.bfloat16, 0.1).requires_grad_()
+    logits = unembed_apply(table, x)
+    assert logits.dtype == torch.float32
+    want = x.float() @ table.float().t()
+    torch.testing.assert_close(logits, want, rtol=1e-5, atol=1e-4)
+    cot = _cuda(rng, tuple(logits.shape))
+    gx, gt = torch.autograd.grad(logits, (x, table), cot)
+    xf, tf = x.detach().float().requires_grad_(), table.detach().float().requires_grad_()
+    wx, wt = torch.autograd.grad(xf @ tf.t(), (xf, tf), cot)
+    assert gx.dtype == gt.dtype == torch.bfloat16
+    for g, w in ((gx, wx), (gt, wt)):
+        assert float((g.float() - w).abs().max()) <= 1e-2 * float(w.abs().max())

@@ -1,0 +1,131 @@
+"""The port's train step (``repro_torch.train``) against the JAX package's
+``make_train_step`` on the CPU, dense attention models: one step from the
+JAX ``init_train_state`` carried across, the same batch, f32 (tolerances in
+``_torch_train_common``); the microbatched step; one bf16 step; and the loss
+falling over steps, as the reference's own ``TestTrainStep`` holds it. The
+SSM and MoE models are in ``test_torch_train_mixers.py``."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_train_common as common
+from repro_torch.optim import AdamWConfig
+from repro_torch.train import TrainConfig, init_train_state, make_train_step
+from repro_torch.train.train_step import loss_and_grads
+from repro_torch.tree import tree_leaves, tree_map
+
+OPT = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=50)
+
+
+def one_step_matches(arch: str, train_cfg: TrainConfig, opt: AdamWConfig = OPT) -> None:
+    """Metrics, every gradient leaf and the updated parameters of one f32
+    step; the step counters advance by one."""
+    jc, tc = common.configs(arch, "float32")
+    jstate, tstate = common.states(jc, tc, opt, train_cfg)
+    b = common.batch(jc)
+    jnew, jmetrics, jgrads = common.jax_step(jc, opt, train_cfg, jstate, b)
+    grads, _ = common.port_grads(tc, train_cfg, tstate, b)
+    common.check_grads(common.flat_port(grads), common.flat_jax(jgrads), arch)
+    before = common.flat_port(tstate["params"])
+    new, metrics = make_train_step(tc, opt, train_cfg)(tstate, common.torch_batch(b))
+    common.check_metrics(metrics, jmetrics)
+    lr = float(jmetrics["lr"])
+    common.check_params(common.flat_port(new["params"]), common.flat_jax(jnew["params"]), lr,
+                        before)
+    assert int(new["step"]) == 1 and int(new["opt"]["step"]) == 1
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b-smoke", "gemma3-1b-smoke"])
+def test_train_step_matches_reference(arch):
+    one_step_matches(arch, TrainConfig())
+
+
+def test_microbatched_step_matches_reference():
+    """Two microbatches: f32 gradient accumulation divided by 2, against the
+    reference's ``microbatches=2``."""
+    one_step_matches("internlm2-1.8b-smoke", TrainConfig(microbatches=2))
+
+
+def test_bf16_step_matches_reference():
+    """bf16 matrices (norms f32): loss, CE and the gradient norm within the
+    port's bf16 logit tolerance (rtol 2e-2, ``test_torch_models.bf16_tol``),
+    every gradient leaf within rtol 2e-2 and 2e-2 of its largest entry; each
+    gradient in its parameter's dtype."""
+    jc, tc = common.configs("internlm2-1.8b-smoke", "bfloat16")
+    train_cfg = TrainConfig()
+    jstate, tstate = common.states(jc, tc, OPT, train_cfg)
+    b = common.batch(jc)
+    _, jmetrics, jgrads = common.jax_step(jc, OPT, train_cfg, jstate, b)
+    grads, _ = common.port_grads(tc, train_cfg, tstate, b)
+    for g, p in zip(tree_leaves(grads), tree_leaves(tstate["params"])):
+        assert g.dtype == p.dtype  # bf16 matrices, f32 norms
+    got, want = common.flat_port(grads), common.flat_jax(jgrads)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, rtol=2e-2, atol=2e-2 * float(np.abs(w).max()),
+                                   err_msg=k)
+    _, metrics = make_train_step(tc, OPT, train_cfg)(tstate, common.torch_batch(b))
+    for k in ("loss", "ce", "grad_norm"):
+        np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]), rtol=2e-2, err_msg=k)
+
+
+def test_loss_decreases_on_smoke_model():
+    """The reference's TestTrainStep on the port: 8 steps from the port's own
+    init, lr 3e-3, no warmup or decay; the loss falls by more than 0.25."""
+    cfg = common.configs("internlm2-1.8b-smoke", "bfloat16")[1]
+    opt = AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=50, weight_decay=0.0)
+    state = init_train_state(cfg, opt, 0, device="cpu")
+    step = make_train_step(cfg, opt)
+    tok = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab, (4, 32)))
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+    losses = []
+    for _ in range(8):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    assert losses[-1] < losses[0] - 0.25, losses
+    assert int(state["step"]) == 8
+
+
+def test_remat_gives_the_same_gradient():
+    """``cfg.remat`` (each pattern group rematerialized in the backward, as
+    the JAX package's ``jax.checkpoint``) changes no bit of the gradient."""
+    cfg = common.configs("internlm2-1.8b-smoke", "float32")[1]
+    state = init_train_state(cfg, OPT, 0, device="cpu")
+    batch = common.torch_batch(common.batch(cfg))
+    on, _ = loss_and_grads(state["params"], cfg, TrainConfig(), batch)
+    off, _ = loss_and_grads(state["params"], dataclasses.replace(cfg, remat=False),
+                            TrainConfig(), batch)
+    for a, b in zip(tree_leaves(on), tree_leaves(off)):
+        assert torch.equal(a, b)
+        assert bool(a.abs().max() > 0)  # no parameter cut off from the graph
+
+
+def test_remat_only_where_a_gradient_can_flow(monkeypatch):
+    """The stack rematerializes its units (one a prefix or suffix block, one
+    a pattern group) only when a gradient can flow: an inference forward in
+    grad mode with no parameter requiring a gradient checkpoints nothing."""
+    from repro_torch.models import forward
+
+    calls = []
+    checkpoint = torch.utils.checkpoint.checkpoint
+    monkeypatch.setattr(torch.utils.checkpoint, "checkpoint",
+                        lambda *a, **kw: calls.append(1) or checkpoint(*a, **kw))
+    cfg = common.configs("internlm2-1.8b-smoke", "float32")[1]
+    assert cfg.remat
+    state = init_train_state(cfg, OPT, 0, device="cpu")
+    batch = common.torch_batch(common.batch(cfg))
+    frozen = tree_map(lambda t: t.detach(), state["params"])
+    logits, _ = forward(frozen, cfg, batch["tokens"])
+    assert not calls and not logits.requires_grad
+    loss_and_grads(state["params"], cfg, TrainConfig(), batch)
+    assert len(calls) == len(cfg.prefix) + cfg.n_pattern_repeats + len(cfg.suffix)
+
+
+def test_init_train_state_defaults_to_the_card():
+    """No CPU fallback: without a card the default device raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    cfg = common.configs("internlm2-1.8b-smoke", "float32")[1]
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_train_state(cfg, OPT, 0)
