@@ -125,7 +125,24 @@ Phases, in the order they run, each failing hard:
    ``n_jobs=4``, ``n_iters=250``) runs under the lockstep and the async
    runtime on a ``solver="cuda"`` engine: records must be identical, every
    job must finish and the kernel must have launched. A 32-lane fleet on the
-   kernel and on the plain version must give identical records.
+   kernel and on the plain version must give identical records; both run
+   with the port's mutation sanitizer installed
+   (``repro_torch.analysis.sanitizer``): no ``SanitizerError``, and the
+   graph mutations (drift churn on every 4th lane) and engine builds it
+   audited are printed and must both be more than 0. The 256-lane runs are
+   not sanitized.
+11. Dry run (``repro_torch.launch.dryrun``), in a child process started
+   before the build (``--dry-run-child``; it needs a CPU core, no device
+   time, and its output goes under ``build/``): over a fake process group of
+   256 ranks on the single production mesh (16 x 16, device type cuda),
+   ``run_cell`` for internlm2-1.8b x train_4k and deepseek-v2-lite-16b x
+   decode_32k (MoE and the MLA cache through ``models/hints.py``); both must
+   be ``ok`` (a cell whose refused ops had to gather the batch is not) and
+   both records are printed, with what the resharding of refused ops did
+   (``reshard``). On a (1, 1) mesh the static bytes
+   of internlm2-1.8b's training state must equal exactly the bytes of the
+   state the training phase held on the card (params, AdamW moments,
+   steps). The run waits for the child at its end.
 
 Every path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel a path is not expected to launch must show
@@ -176,6 +193,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.analysis import sanitizer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import SCENARIOS, JRBAEngine, OnlineScheduler, torus_network  # noqa: E402
 from repro_torch.core.graph import NetworkGraph  # noqa: E402
@@ -191,7 +209,9 @@ from repro_torch.kernels import rwkv6 as rw  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     row_limit_ratio, rwkv6_sequential, same_bits, ssd_sequential)
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_driver  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import decode_step, forward, init_cache, init_params, prefill  # noqa: E402
 from repro_torch.models.transformer import pick_chunk  # noqa: E402
@@ -1379,6 +1399,9 @@ def grad_checks(device, card) -> int:
     return n
 
 
+CARD_STATE_BYTES: dict[str, int] = {}
+
+
 def train_batch(cfg, device) -> dict:
     """Step 0 of the synthetic data pipeline (seed 0) at the training shape."""
     dcfg = DataConfig(vocab=cfg.vocab, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED)
@@ -1438,6 +1461,9 @@ def kernel_vs_plain_step(device, card) -> dict:
     cfg = get_config(TRAIN_ARCH)
     opt = train_opt(cfg)
     state = init_train_state(cfg, opt, SEED, device=device)
+    # the training state the card holds (params, AdamW moments, steps): the
+    # dry run's (1, 1)-mesh static bytes must equal it
+    CARD_STATE_BYTES[TRAIN_ARCH] = sum(t.numel() * t.element_size() for t in tree_leaves(state))
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
     assert n_params == cfg.param_count(), (n_params, cfg.param_count())
     batch = train_batch(cfg, device)
@@ -1941,14 +1967,25 @@ def fleet_phase(device, kernel_solver, plain_solver, card, *, lanes, small_lanes
     log(f"[fleet] lockstep vs async max_record_rel_dev {dev}")
     assert dev == 0.0, f"lockstep and async records differ: {dev}"
     assert lock.unfinished == 0 and asyn.unfinished == 0, "unfinished jobs"
-    (small_k, eng_k), launches[f"fleet_{small_lanes}_lockstep"] = counted(
-        f"{small_lanes}-lane fleet lockstep ({kernel_solver})", True,
-        run_fleet, device, kernel_solver, "lockstep", small_lanes, names,
-    )
-    (small_p, eng_p), _ = counted(
-        f"{small_lanes}-lane fleet lockstep ({plain_solver})", False,
-        run_fleet, device, plain_solver, "lockstep", small_lanes, names,
-    )
+    # the kernel-vs-plain comparison runs under the port's mutation
+    # sanitizer: every graph mutation and engine build of both runs audited
+    uninstall = sanitizer.install()
+    sanitizer.reset_counts()
+    try:
+        (small_k, eng_k), launches[f"fleet_{small_lanes}_lockstep"] = counted(
+            f"{small_lanes}-lane fleet lockstep ({kernel_solver}, sanitized)", True,
+            run_fleet, device, kernel_solver, "lockstep", small_lanes, names,
+        )
+        (small_p, eng_p), _ = counted(
+            f"{small_lanes}-lane fleet lockstep ({plain_solver}, sanitized)", False,
+            run_fleet, device, plain_solver, "lockstep", small_lanes, names,
+        )
+    finally:
+        uninstall()
+    audited = dict(sanitizer.AUDITED)
+    log(f"[fleet] sanitizer: {audited['mutations']} graph mutations and {audited['builds']} "
+        f"engine builds audited over the {small_lanes}-lane kernel and plain runs")
+    assert audited["mutations"] > 0 and audited["builds"] > 0, audited
     report_fleet(f"{small_lanes} lanes lockstep ({kernel_solver})", small_k, eng_k, card)
     report_fleet(f"{small_lanes} lanes lockstep ({plain_solver})", small_p, eng_p, card)
     dev = max_record_dev(small_k.results, small_p.results)
@@ -1957,10 +1994,82 @@ def fleet_phase(device, kernel_solver, plain_solver, card, *, lanes, small_lanes
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the dry run, in a child process beside the other phases
+# ---------------------------------------------------------------------------
+# (arch, cell) on the single production mesh: a full-size training cell,
+# and a decode cell that puts MoE and the MLA cache through the hints
+DRYRUN_CELLS = [("internlm2-1.8b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k")]
+DRYRUN_CHILD = "--dry-run-child"
+DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun"
+
+
+def dryrun_child() -> int:
+    """The dry run's cells on the single production mesh (256 fake ranks,
+    device type cuda), then the (1, 1) mesh's static bytes of
+    internlm2-1.8b's training state. Prints one JSON line."""
+    out: dict = {"cells": []}
+    t0 = time.perf_counter()
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device_type="cuda")
+        for arch, cell in DRYRUN_CELLS:
+            out["cells"].append(dryrun.run_cell(arch, cell, mesh, "single"))
+    with dryrun.fake_world(1):
+        _, aux = dryrun.lower_cell(TRAIN_ARCH, "train_4k", make_debug_mesh((1, 1)))
+        out["static_1x1"] = aux["static_state_bytes_per_device"]
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def start_dryrun() -> subprocess.Popen:
+    """The dry run in a child process: it needs no device time, only a CPU
+    core, so it runs while the build and the first phases do. Its output
+    goes to files under the gitignored ``build/``."""
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    with open(DRYRUN_OUT / "stdout", "w") as so, open(DRYRUN_OUT / "stderr", "w") as se:
+        return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), DRYRUN_CHILD],
+                                stdout=so, stderr=se, cwd=ROOT)
+
+
+def finish_dryrun(child: subprocess.Popen, card: str) -> dict:
+    """Waits for the child; both cells must be ``ok``, and the (1, 1) static
+    bytes must equal the training state the card held. Prints both records."""
+    t0 = time.perf_counter()
+    rc = child.wait(timeout=600)
+    waited = time.perf_counter() - t0
+    text = (DRYRUN_OUT / "stdout").read_text()
+    if rc != 0 or not text.strip():
+        log((DRYRUN_OUT / "stderr").read_text()[-4000:])
+        raise AssertionError(f"the dry-run child exited {rc}")
+    out = json.loads(text.strip().splitlines()[-1])
+    for rec in out["cells"]:
+        tb = rec.pop("traceback", None)
+        log(f"[dryrun] {json.dumps(rec)}")
+        assert rec["ok"], f"dry run {rec['arch']} x {rec['cell']}: {rec.get('error')}\n{tb}"
+    log(f"[dryrun] {TRAIN_ARCH} training state on a (1, 1) mesh: {out['static_1x1']} bytes; "
+        f"on the card: {CARD_STATE_BYTES[TRAIN_ARCH]} bytes")
+    assert out["static_1x1"] == CARD_STATE_BYTES[TRAIN_ARCH], out["static_1x1"]
+    log(f"[time] dry-run child {out['seconds']:.1f} s, waited for {waited:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
+    if sys.argv[1:] == [DRYRUN_CHILD]:
+        return dryrun_child()
+    child = start_dryrun()
+    try:
+        return run(child)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def run(child: subprocess.Popen) -> int:
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -2063,6 +2172,7 @@ def main() -> int:
                     {"evidence": rwkv_f32_sass, "grids_per_call": GRIDS_PER_CALL["rwkv6_scan"],
                      "f32_prefill": f32_prefills["rwkv6-3b"]}),
     ]
+    finish_dryrun(child, card)
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": [record, *flashes, *scans]}))

@@ -388,6 +388,8 @@ def _converged(ci_next, stable, span, prev_span, span_rtol, min_chunks, stable_c
 
 
 def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
+    # reprolint: allow[JP201] -- the solve's one readback: rounding, Eq. 15
+    # and water-filling run on the host and need w, the spans and the steps
     return [t.cpu().numpy() for t in tensors]
 
 

@@ -15,6 +15,7 @@ in the forward, and an input the kernels do not take raises.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .flash_attention import FlashAttention, flash_attention_plain
 from .rwkv6 import MAX_CHUNK, RWKV6Scan, rwkv6_scan_plain
@@ -25,9 +26,16 @@ __all__ = ["flash_attention", "rwkv6_scan", "ssd_scan"]
 
 def _route(plain, function, args: tuple, kw: dict) -> torch.Tensor:
     """``plain`` on a CPU tensor; on a CUDA one ``function``: the kernel's
-    forward, the plain version's gradient."""
-    if args[0].device.type == "cpu":
+    forward, the plain version's gradient. A ``meta`` tensor, which holds no
+    data (the dry run's DTensors have ``meta`` shards), takes the plain
+    version, as the JAX package's dry run lowers its jnp twins. A DTensor on
+    the card raises: the kernels take whole tensors."""
+    x = args[0]
+    if x.device.type in ("cpu", "meta"):
         return plain(*args, **kw)
+    if isinstance(x, DTensor):
+        raise TypeError(f"a DTensor on {x.device}: the kernels take whole tensors; "
+                        "pass its to_local() shards or a full_tensor()")
     return function.apply(*args, kw)
 
 

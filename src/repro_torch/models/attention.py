@@ -12,6 +12,7 @@ latent cache.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..kernels.flash_attention import NEG_INF, blockwise_attention
 from ..kernels.ops import flash_attention
@@ -44,6 +45,11 @@ def _cache_write(cache: Tensor, new: Tensor, slots: Tensor) -> Tensor:
     ``cache`` (B, Smax, ...), in place; returns ``cache``. A row past the end
     is clamped to the last, as ``lax.dynamic_update_slice`` clamps it."""
     rows = slots.long().clamp(max=cache.shape[1] - 1)
+    if isinstance(cache, DTensor):
+        # out of place, as the JAX package writes it: DTensor has no
+        # index_put_ along a sharded batch dim (the dry run's caches)
+        hit = torch.arange(cache.shape[1], device=rows.device)[None, :] == rows[:, None]
+        return torch.where(hit.reshape(*hit.shape, *[1] * (cache.dim() - 2)), new, cache)
     cache[torch.arange(cache.shape[0], device=cache.device), rows] = new[:, 0]
     return cache
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .hints import constrain_activation
 from .layers import embed_apply, embed_init, rmsnorm, rmsnorm_init, unembed_apply
 from .transformer import pick_chunk, stack_apply, stack_decode, stack_init, stack_init_cache
 
@@ -64,7 +65,9 @@ def _embed_inputs(p: dict, cfg, tokens: Tensor, frontend_embeds: Tensor | None) 
         if frontend_embeds is None:
             raise ValueError(f"{cfg.name} needs frontend_embeds")
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
-    return x
+    # pin the embedding-gather output's layout before the stack, as the JAX
+    # package does (a no-op unless the dry run installed one)
+    return constrain_activation(x)
 
 
 def forward_hidden(

@@ -12,16 +12,19 @@ package leaves them to XLA outside any kernel; each token's outputs are then
 gathered by destination and summed with its gates in f32, and the shared
 experts added.
 
-The JAX package pins the buffer's sharding over its expert-parallel mesh axis
-(``models/hints.py::constrain_moe_buffer``); on one card there is nothing to
-pin, and nothing here stands for it.
+The 4-D dispatch buffers (the expert inputs, ``up`` and the expert outputs)
+pass through ``models/hints.py::constrain_moe_buffer`` where the JAX package
+pins them to its expert-parallel layout: a no-op unless the dry run
+installed a layout.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
+from .hints import constrain_moe_buffer
 from .layers import gelu_tanh, mlp_apply, mlp_init, silu, truncated_normal
 
 __all__ = ["moe_apply", "moe_capacity", "moe_init"]
@@ -55,6 +58,31 @@ def moe_init(gen: torch.Generator, cfg, dtype, device) -> dict:
     return p
 
 
+def _replicated(t: Tensor) -> Tensor:
+    """``t`` whole on every rank when it is a DTensor (DTensor's scatter
+    cannot take an index sharded over two mesh dims, nor some PyTorch
+    versions flatten one); else ``t`` itself."""
+    if isinstance(t, DTensor):
+        return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+    return t
+
+
+def _dispatch_out_of_place(x: Tensor, dst: Tensor, rows: int) -> Tensor:
+    """The buffer ``_dispatch_group``'s row scatters write, built out of
+    place, as a DTensor needs it (DTensor cannot run the in-place scatter):
+    each row's source token is scattered first (T, a zero row, where none
+    lands) and the rows gathered from it. The same forward bits; its
+    backward sums a token's gradient by a ``scatter_add`` over its k
+    choices, so the plain path keeps the scatters."""
+    G, T, d = x.shape
+    k = dst.shape[-1]
+    tok = torch.arange(T, device=x.device).repeat_interleave(k).expand(G, T * k)
+    src = torch.full((G, rows), T, dtype=torch.int64, device=x.device)
+    src = src.scatter(1, _replicated(dst).reshape(G, T * k), tok)
+    xz = torch.cat([x, x.new_zeros((G, 1, d))], dim=1)
+    return xz.gather(1, src[..., None].expand(G, rows, d))
+
+
 def _dispatch_group(x: Tensor, topi: Tensor, C: int, cfg) -> tuple[Tensor, Tensor, Tensor]:
     """Every group's scatter at once. x: (G, T, d); topi: (G, T, k).
 
@@ -65,7 +93,7 @@ def _dispatch_group(x: Tensor, topi: Tensor, C: int, cfg) -> tuple[Tensor, Tenso
     G, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     experts = torch.arange(E, device=x.device)
-    counts = torch.zeros((G, E), dtype=torch.int32, device=x.device)
+    counts = None  # (G, E): the tokens each expert took with the earlier choices
     dst, keep = [], []
     for j in range(k):  # a small static loop: rank-in-expert per routing choice
         e_j = topi[..., j]  # (G, T)
@@ -75,15 +103,26 @@ def _dispatch_group(x: Tensor, topi: Tensor, C: int, cfg) -> tuple[Tensor, Tenso
         # prefill at S=32768)
         onehot = (e_j[:, None, :] == experts[None, :, None]).int()
         ranks_within = onehot.cumsum(dim=-1, dtype=torch.int32) - onehot  # rank among choice j
-        rank = ranks_within.gather(1, e_j[:, None, :])[:, 0] + counts.gather(1, e_j)
-        counts = counts + onehot.sum(dim=-1, dtype=torch.int32)
+        rank = ranks_within.gather(1, e_j[:, None, :])[:, 0]
+        taken = onehot.sum(dim=-1, dtype=torch.int32)
+        # no zero start: DTensor turns a replicated int into a partial sum by
+        # dividing it, in floats
+        if counts is None:
+            counts = taken
+        else:
+            rank = rank + counts.gather(1, e_j)
+            counts = counts + taken
         ok = rank < C
         dst.append(torch.where(ok, e_j * C + rank, E * C))
         keep.append(ok)
-    dst = torch.stack(dst, dim=-1)  # (G, T, k)
-    keep = torch.stack(keep, dim=-1)
+    # (G, T, k); a positive dim, as DTensor on PyTorch 2.11 labels a stack at
+    # dim=-1 of tensors sharded on dim 1 as sharded on the new dim
+    dst = torch.stack(dst, dim=2)
+    keep = torch.stack(keep, dim=2)
     # every destination but the overflow row is written once; that row is
     # never read (moe_apply cuts it off before the experts run)
+    if isinstance(x, DTensor):
+        return _dispatch_out_of_place(x, dst, E * C + 1), dst, keep
     buf = torch.zeros((G, E * C + 1, d), dtype=x.dtype, device=x.device)
     for j in range(k):
         buf.scatter_(1, dst[..., j, None].expand(G, T, d), x)
@@ -104,14 +143,14 @@ def moe_apply(p: dict, cfg, x: Tensor) -> tuple[Tensor, dict]:
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
 
     buf, dst, keep = _dispatch_group(x, topi, C, cfg)
-    ebuf = buf[:, : E * C].reshape(G, E, C, d)
+    ebuf = constrain_moe_buffer(buf[:, : E * C].reshape(G, E, C, d))
     # expert products, batched over (G, E)
-    up = torch.einsum("gecd,edf->gecf", ebuf, p["w_up"])
+    up = constrain_moe_buffer(torch.einsum("gecd,edf->gecf", ebuf, p["w_up"]))
     if "w_gate" in p:
         h = silu(torch.einsum("gecd,edf->gecf", ebuf, p["w_gate"])) * up
     else:
         h = gelu_tanh(up)
-    y_e = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+    y_e = constrain_moe_buffer(torch.einsum("gecf,efd->gecd", h, p["w_down"]))
     # dropped choices read a zero row
     y_flat = torch.cat([y_e.reshape(G, E * C, d), y_e.new_zeros((G, 1, d))], dim=1)
     out = torch.zeros((G, T, d), dtype=torch.float32, device=x.device)

@@ -5,12 +5,13 @@ groups of ``cfg.pattern`` blocks, ``suffix`` blocks. The JAX package stacks
 each group's parameters and runs the groups as one ``lax.scan`` (with remat);
 here ``groups`` is a list of per-group tuples and a Python loop walks the
 blocks in layer order, rematerializing the same units as the JAX package
-when a gradient is taken (``stack_apply``). Its
-``models/hints.py`` (GSPMD sharding pins for the scan carry) has no
-counterpart on one card. Zamba-style shared attention keeps one mixer
-parameter set at ``stack["shared_attn"]`` (``None`` for every other model);
-each ``shared_attn`` block reads those same tensors and keeps its own norms
-and MLP.
+when a gradient is taken (``stack_apply``). The layer-boundary activations
+pass through ``models/hints.py::constrain_activation`` where the JAX package
+pins them (before each prefix and suffix block, at each group's start and
+end): a no-op unless the dry run installed a layout. Zamba-style shared
+attention keeps one mixer parameter set at ``stack["shared_attn"]``
+(``None`` for every other model); each ``shared_attn`` block reads those
+same tensors and keeps its own norms and MLP.
 
 Every block kind of the configs runs: mixers ``gqa``/``swa``, ``mla``,
 ``mamba2`` and ``rwkv6``; channel mixers ``dense``, ``moe`` or none. A MoE
@@ -23,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import attention as attn
+from . import hints
 from . import moe as moe_mod
 from . import ssm
 from ..tree import tree_leaves, tree_paths
@@ -202,24 +204,31 @@ def stack_apply(p: dict, cfg, x: Tensor, *, chunk: int = 1024) -> tuple[Tensor, 
     non-reentrant)."""
     shared = p["shared_attn"]
 
-    def unit(params: list, blocks: tuple, x: Tensor) -> tuple[Tensor, dict]:
+    def unit(params: list, blocks: tuple, x: Tensor, group: bool) -> tuple[Tensor, dict]:
         aux: dict = {}
+        if group:  # the group's carry, which remat saves: keep it sharded
+            x = hints.constrain_activation(x)
         for bp, b in zip(params, blocks):
             x, a = block_apply(bp, cfg, b, x, shared_mixer=shared, chunk=chunk)
             aux = _sum_aux(aux, a)
+        if group:
+            x = hints.constrain_activation(x)
         return x, aux
 
-    units = [([bp], (b,)) for bp, b in zip(p["prefix"], cfg.prefix)]
-    units += [(list(group), cfg.pattern) for group in p["groups"]]
-    units += [([bp], (b,)) for bp, b in zip(p["suffix"], cfg.suffix)]
+    units = [([bp], (b,), False) for bp, b in zip(p["prefix"], cfg.prefix)]
+    units += [(list(group), cfg.pattern, True) for group in p["groups"]]
+    units += [([bp], (b,), False) for bp, b in zip(p["suffix"], cfg.suffix)]
     remat = cfg.remat and torch.is_grad_enabled() and (
         x.requires_grad or any(t.requires_grad for t in tree_leaves(p)))
     aux: dict = {}
-    for params, blocks in units:
+    for params, blocks, group in units:
+        if not group:  # checkpoint saves it sharded
+            x = hints.constrain_activation(x)
         if remat:
-            x, a = torch.utils.checkpoint.checkpoint(unit, params, blocks, x, use_reentrant=False)
+            x, a = torch.utils.checkpoint.checkpoint(unit, params, blocks, x, group,
+                                                     use_reentrant=False)
         else:
-            x, a = unit(params, blocks, x)
+            x, a = unit(params, blocks, x, group)
         aux = _sum_aux(aux, a)
     return x, aux
 

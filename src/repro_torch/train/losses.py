@@ -3,6 +3,7 @@ multi-token-prediction term (the JAX package's ``train/losses.py``)."""
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 Tensor = torch.Tensor
 
@@ -16,7 +17,16 @@ def cross_entropy(logits: Tensor, labels: Tensor, *, ignore_id: int = -1) -> Ten
     tensor."""
     logits = logits.float()
     lz = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    labels_ = labels.clamp_min(0).long()
+    if isinstance(logits, DTensor):
+        # the dry run shards the vocab: a gather along it yields a partial
+        # DTensor cannot reduce, and nll_loss's backward is whole on every
+        # rank; the label's logit picked by a mask keeps its gradient
+        # sharded as the logits are
+        hit = labels_[..., None] == torch.arange(logits.shape[-1], device=logits.device)
+        picked = torch.where(hit, logits, 0.0).sum(dim=-1)
+    else:
+        picked = logits.gather(-1, labels_[..., None])[..., 0]
     mask = (labels != ignore_id).float()
     return torch.sum((lz - picked) * mask) / torch.clamp(mask.sum(), min=1.0)
 

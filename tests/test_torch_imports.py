@@ -53,6 +53,13 @@ REQUIRED = [
     "repro_torch.train.losses", "repro_torch.train.train_step", "repro_torch.train.checkpoint",
     "repro_torch.train.fault_tolerance", "repro_torch.data", "repro_torch.data.pipeline",
     "repro_torch.launch.train",
+    # the last slice: analysis and the dry run
+    "repro_torch.analysis", "repro_torch.analysis.framework", "repro_torch.analysis.sanitizer",
+    "repro_torch.analysis.__main__", "repro_torch.analysis.passes",
+    "repro_torch.analysis.passes.cache_coherence", "repro_torch.analysis.passes.determinism",
+    "repro_torch.analysis.passes.host_sync", "repro_torch.analysis.passes.telemetry",
+    "repro_torch.launch.mesh", "repro_torch.launch.sharding", "repro_torch.launch.variants",
+    "repro_torch.launch.dryrun", "repro_torch.models.hints",
 ]
 
 
@@ -87,3 +94,32 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
         )
         assert proc.returncode != 0, (cwd, proc.stdout)
         assert '"ok"' not in proc.stdout
+
+
+SCHEDULER_TESTS = ("test_torch_jrba.py", "test_torch_online_fleet.py", "test_torch_graph_paths.py")
+
+
+def test_scheduler_tests_arm_the_ports_sanitizer(monkeypatch):
+    """The port's scheduler test modules take the autouse fixture of
+    ``tests/_torch_sanitize.py``; under ``REPRO_SANITIZE=1`` it installs the
+    port's sanitizer (every port graph and engine audited) and takes it out
+    after, and without it does nothing."""
+    import _torch_sanitize
+
+    from repro_torch.core.graph import random_edge_network
+    from repro_torch.core.jrba import JRBAEngine
+
+    line = "from _torch_sanitize import port_sanitizer  # noqa: F401"
+    for name in SCHEDULER_TESTS:
+        with open(os.path.join(ROOT, "tests", name), encoding="utf-8") as f:
+            assert line in f.read().splitlines(), name
+    monkeypatch.setenv("REPRO_SANITIZE", "1")
+    with _torch_sanitize.armed() as on:
+        assert on
+        assert getattr(random_edge_network(5), "_repro_sanitized", False)
+        assert getattr(JRBAEngine(device="cpu"), "_repro_sanitized", False)
+    monkeypatch.setenv("REPRO_SANITIZE", "0")
+    with _torch_sanitize.armed() as on:
+        assert not on
+        assert not getattr(random_edge_network(5), "_repro_sanitized", False)
+    assert not getattr(JRBAEngine(device="cpu"), "_repro_sanitized", False)

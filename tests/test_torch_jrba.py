@@ -7,6 +7,7 @@ the reference, and rounding absorbs the drift."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from _torch_sanitize import port_sanitizer  # noqa: F401
 
 import repro.core as ref
 import repro_torch.core as port

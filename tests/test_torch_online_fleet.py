@@ -5,6 +5,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+from _torch_sanitize import port_sanitizer  # noqa: F401
 
 import repro.core as ref
 import repro.fleet as ref_fleet
