@@ -93,7 +93,9 @@ Phases, in the order they run, each failing hard:
    internlm2-1.8b's training batch (B=4, S=2048, 16/8 heads, D=128), each
    causal at its window and not causal with scale 0.1; the SSD and RWKV-6
    scans at the kernel tests' cases and zamba2-7b's and rwkv6-3b's heads at
-   S=4096. The Function's output must equal the kernel's and every input
+   S=4096, and once past the SSD's cliff (decays summing far past f32's exp
+   range in a chunk), where every gradient must be finite. The Function's
+   output must equal the kernel's and every input
    gradient the plain version's, bit for bit, for a seeded output gradient;
    each gradient's gap to the f32 plain gradient is read. Then
    ``repro_torch.launch.train.main`` trains internlm2-1.8b (1,889,110,016
@@ -105,10 +107,23 @@ Phases, in the order they run, each failing hard:
    to ``TRAIN_LIMITS``, the largest updated-parameter gap read, and no
    gradient all zeros where the plain path's is not; a further kernel step
    is profiled.
-8. Placement: ``place_job`` places ``examples/serve_cluster.py``'s five
-   stage graphs on an 8x8 torus through the JRBA kernel and on the CPU:
-   assignments, routes, bandwidths and spans must be identical.
-9. JRBA kernel against plain: every JRBA program that the port's
+8. The examples' twins: ``examples/torch_quickstart.py`` in full through
+   the JRBA kernel and through its plain version on the card
+   (``REPRO_TORCH_JRBA_SOLVER=sparse``), Fig. 2's figures and every
+   policy's records identical; ``examples/torch_serve_cluster.py``'s serving
+   demo on the card and with the model kernels routed to their plain
+   versions, the same tokens (the engine prefills by decode steps, as the
+   JAX package's does, so neither launches a kernel); ``examples/torch_train_100m.py`` at its 100m
+   preset (its full width) for 6 of its 300 steps with a checkpoint at step
+   3, then resumed from it: exactly 24 bf16 flash launches a step, each
+   resumed loss within ``TRAIN_LIMITS["loss"]`` of the uninterrupted run's,
+   ms a step and tokens/s printed; ``examples/torch_fleet_demo.py``'s seven
+   sections through the JRBA kernel, every records-identical check True.
+9. Placement: ``examples/torch_serve_cluster.py``'s placement demo places
+   ``examples/serve_cluster.py``'s five stage graphs on an 8x8 torus
+   through the JRBA kernel and on the CPU: assignments, routes, bandwidths
+   and spans must be identical.
+10. JRBA kernel against plain: every JRBA program that the port's
    ``OnlineScheduler`` solves (OTFS and OTFA, k=3, all 12 scenarios, seeds
    0-1, 8 jobs) is replayed through the CUDA kernel (``solver="cuda"``) and
    through its plain PyTorch version (``solver="sparse"``), both on the
@@ -120,7 +135,7 @@ Phases, in the order they run, each failing hard:
    steps, the time per step, and the latency floor: those steps times one
    step's minimum dependent chain, timed by the source's one-warp
    microbenchmark (``jrba_congestion.step_floor_ms``).
-10. Fleet: a 256-lane async-built fleet (the fleet families plus
+11. Fleet: a 256-lane async-built fleet (the fleet families plus
    ``wan-mesh-xl`` and ``edge-mesh-flash``, drift churn on every 4th lane,
    ``n_jobs=4``, ``n_iters=250``) runs under the lockstep and the async
    runtime on a ``solver="cuda"`` engine: records must be identical, every
@@ -131,15 +146,21 @@ Phases, in the order they run, each failing hard:
    graph mutations (drift churn on every 4th lane) and engine builds it
    audited are printed and must both be more than 0. The 256-lane runs are
    not sanitized.
-11. Dry run (``repro_torch.launch.dryrun``), in a child process started
+12. Dry run (``repro_torch.launch.dryrun``), in a child process started
    before the build (``--dry-run-child``; it needs a CPU core, no device
    time, and its output goes under ``build/``): over a fake process group of
    256 ranks on the single production mesh (16 x 16, device type cuda),
-   ``run_cell`` for internlm2-1.8b x train_4k and deepseek-v2-lite-16b x
-   decode_32k (MoE and the MLA cache through ``models/hints.py``); both must
-   be ``ok`` (a cell whose refused ops had to gather the batch is not) and
-   both records are printed, with what the resharding of refused ops did
-   (``reshard``). On a (1, 1) mesh the static bytes
+   ``run_cell`` for internlm2-1.8b x train_4k, deepseek-v2-lite-16b x
+   decode_32k (MoE and the MLA cache through ``models/hints.py``), and
+   zamba2-7b and rwkv6-3b x train_4k (the SSM mixers' padding and
+   ``cumsum``'s gradient on DTensors); every cell must be ``ok`` (a cell
+   whose refused ops had to gather the batch is not) and the records are
+   printed, with what the resharding of refused ops did (``reshard``).
+   internlm2-1.8b x train_4k's peak bytes a device, counted from the cell's
+   local ops, must be within 10% of the 7.51e10 that PyTorch 2.13 reads.
+   ``scripts/torch_hillclimb.py --arch internlm2-1.8b --cell train_4k
+   --breakdown`` runs there too: its FLOPs and collective bytes must be the
+   cell's record's. On a (1, 1) mesh the static bytes
    of internlm2-1.8b's training state must equal exactly the bytes of the
    state the training phase held on the card (params, AdamW moments,
    steps). The run waits for the child at its end.
@@ -147,8 +168,8 @@ Phases, in the order they run, each failing hard:
 Every path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel a path is not expected to launch must show
 0. The JRBA kernel's main path is the 256-lane lockstep fleet: each path on
-``solver="cuda"`` (the placement, the scheduler, the single and batched
-replays, each fleet run) must have launched it, each on ``solver="sparse"``
+``solver="cuda"`` (the examples, the placement, the scheduler, the single
+and batched replays, each fleet run) must have launched it, each on ``solver="sparse"``
 or the CPU must not have. Each model kernel's main path is the S=32768
 prefill of its model (bf16 flash attention: gemma3-1b's, 26 launches, and
 at MLA's head dims minicpm3-4b's, 62, and deepseek-v2-lite-16b's, 27; bf16
@@ -178,14 +199,18 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import importlib.util
 import itertools
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -195,10 +220,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.analysis import sanitizer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import SCENARIOS, JRBAEngine, OnlineScheduler, torus_network  # noqa: E402
+from repro_torch.core import SCENARIOS, JRBAEngine, OnlineScheduler  # noqa: E402
 from repro_torch.core.graph import NetworkGraph  # noqa: E402
 from repro_torch.core.jrba import sparse_batch_inputs  # noqa: E402
-from repro_torch.core.placement import place_job, stage_graph  # noqa: E402
 from repro_torch.data import DataConfig, synthetic_batch  # noqa: E402
 from repro_torch.fleet import FLEET_SCENARIOS, FleetRuntime, build_async_fleet  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -233,6 +257,14 @@ PEAK_F32 = 67e12
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def load_script(path: str):
+    """A script of the repository (an example's twin, a driver) as a module."""
+    spec = importlib.util.spec_from_file_location(Path(path).stem, ROOT / path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def card_line() -> str:
@@ -843,9 +875,10 @@ LIMITS = {
                                  decode_f32=6e-6, route_flips=0.2),
 }
 DECODE_LEN = 64  # the f32 decode-vs-forward prompt
-# ticks of each serving phase's profile window: 8, cut from 24 to keep the
-# run under 700 s (PERF.md 4); ms a tick and the busy share are still read
-PROFILE_TICKS = 8
+# ticks of each serving phase's profile window: 4, cut from 24 and then 8 to
+# keep the run, its training and examples phases included, under 700 s
+# (PERF.md 4); ms a tick and the busy share are still read
+PROFILE_TICKS = 4
 # zamba2-7b's short prefill check: a prompt under 64 tokens whose SSD chunk
 # (min(64, pick_chunk(S)) = 48) has no tile instance of its own
 SHORT_LEN = 48
@@ -1305,6 +1338,10 @@ GRAD_FLASH_SHAPES = [
 ]
 # the scans at tests/test_kernels.py's cases and the models' heads at S=4096
 GRAD_SSD_SHAPES = [*SSD_CASES[:4], SSD_MODEL[1]]
+# an SSD case past the cliff: dt 1.5-2.5 and A -8..-12 give log-decays of
+# -12..-30 a step, a chunk of 64 sums them far past f32's exp range (88),
+# where an unmasked exp's gradient is NaN; the plain gradient must be finite
+GRAD_SSD_CLIFF = [(2, 256, 4, 64, 64, 64)]
 GRAD_RWKV_SHAPES = [*RWKV_CASES, RWKV_MODEL[1]]
 TRAIN_ARCH = "internlm2-1.8b"  # the reference trainer's family, at full width and depth
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
@@ -1340,9 +1377,9 @@ def grad_case(label: str, function, hsd, plain, args, kw: dict, seed: int, card:
     plain version, bit for bit, for a seeded output gradient. Read, not
     held: each gradient's largest gap to the f32 plain version's (inputs
     upcast) as a share of its row's RMS, and the entries that are not finite
-    in either (the SSD plain version's masked exp overflows above a chunk's
-    diagonal where its decays sum past f32's range; the JAX twin's gradient
-    is NaN there too)."""
+    in either (held at 0 past the SSD's cliff, GRAD_SSD_CLIFF: the SSD plain
+    version masks its exponent above a chunk's diagonal, where the JAX twin's
+    overflows and its gradient is NaN)."""
     ins = [a.detach().clone().requires_grad_() for a in args]
     out = function.apply(*ins, kw)
     with torch.no_grad():
@@ -1383,11 +1420,18 @@ def grad_checks(device, card) -> int:
                           fa.flash_attention_plain, (q, k, v), kw, SEED + n, card)
                 n += 1
             del q, k, v
-        for shape in GRAD_SSD_SHAPES:
+        for shape, cliff in [(s, False) for s in GRAD_SSD_SHAPES] + [
+                (s, True) for s in GRAD_SSD_CLIFF]:
             x, dt, A, Bm, Cm = scan_inputs("ssd_scan", shape, dtype, device)
-            grad_case(f"ssd {shape} {name}", ssd.SSDScan, ssd.ssd_scan_hsd, ssd.ssd_scan_plain,
-                      (x.transpose(1, 2), dt.transpose(1, 2), A, Bm, Cm),
-                      dict(chunk=shape[-1]), SEED + n, card)
+            if cliff:
+                gen = torch.Generator(device=device).manual_seed(SEED + n)
+                dt = 1.5 + torch.rand(dt.shape, generator=gen, device=device)
+                A = -8.0 - 4.0 * torch.rand(A.shape, generator=gen, device=device)
+            rec = grad_case(f"ssd {shape}{' cliff' if cliff else ''} {name}", ssd.SSDScan,
+                            ssd.ssd_scan_hsd, ssd.ssd_scan_plain,
+                            (x.transpose(1, 2), dt.transpose(1, 2), A, Bm, Cm),
+                            dict(chunk=shape[-1]), SEED + n, card)
+            assert not (cliff and rec["non_finite"]), f"ssd {shape} cliff: non-finite gradients"
             n += 1
         for shape in GRAD_RWKV_SHAPES:
             r, k, v, logw, u = scan_inputs("rwkv6_scan", shape, dtype, device)
@@ -1520,39 +1564,151 @@ def training_phase(device, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: ENTS placement of model stage graphs
+# phase 8: the examples' twins
 # ---------------------------------------------------------------------------
-# examples/serve_cluster.py's jobs: (arch, pipeline stages)
-PLACEMENT_JOBS = [
-    ("deepseek-v3-671b", 32),
-    ("deepseek-v2-lite-16b", 4),
-    ("gemma3-1b", 4),
-    ("rwkv6-3b", 4),
-    ("musicgen-medium", 4),
-]
+# examples/torch_train_100m.py's 100m preset (its full width), cut from 300
+# steps to 6 for the run's time, with a checkpoint at step 3 that a second
+# run resumes from
+EXAMPLE_TRAIN_STEPS = 6
+# a step's bf16 flash launches: 12 attention layers, each in the forward and
+# again in remat's recompute
+EXAMPLE_TRAIN_LAUNCHES = {"flash_attention_wgmma": 24}
+EXAMPLES_OUT = ROOT / "build" / "chip_smoke_examples"
 
 
-def place_all(device) -> list:
-    """Place every job in turn on a fresh 8x8 torus, committing memory."""
-    net = torus_network(8, 8, link_bw=50.0e9, node_power=4 * 197e12, node_mem=4 * 16e9)
-    reports = []
-    for arch, n_stages in PLACEMENT_JOBS:
-        job = stage_graph(get_config(arch), n_stages=n_stages, microbatch_tokens=4096,
-                          source_node=0)
-        rep = place_job(net, job, device=device)
-        reports.append(rep)
-        if rep is not None:
-            for t, n in zip(job.tasks, rep.assignment):
-                if t.pinned_node is None:
-                    net.mem_avail[int(n)] -= t.mem
-    return reports
+def same_records(a, b) -> bool:
+    """Two ``SimResult``s with identical records: schedule and finish times,
+    routes and bandwidths, and the same event count."""
+    if max_record_dev([a], [b]) != 0.0 or a.n_events != b.n_events:
+        return False
+    return all(ra.routes == rb.routes and np.array_equal(ra.bandwidths, rb.bandwidths)
+               for ra, rb in zip(a.records, b.records))
 
 
+def quickstart_example(device, card) -> int:
+    """``examples/torch_quickstart.py`` in full through the JRBA kernel and
+    through its plain version on the card (``REPRO_TORCH_JRBA_SOLVER=sparse``):
+    Fig. 2's throughputs, routes and bandwidths and every policy's records
+    identical. Returns the kernel's launches."""
+    qs = load_script("examples/torch_quickstart.py")
+    t0 = time.perf_counter()
+    argv = ["--device", str(device)]
+    got, n = counted("examples/torch_quickstart.py (JRBA kernel)", True, qs.main, argv)
+    seconds = time.perf_counter() - t0
+    with mock.patch.dict(os.environ, {"REPRO_TORCH_JRBA_SOLVER": "sparse"}):
+        want, _ = counted("examples/torch_quickstart.py (REPRO_TORCH_JRBA_SOLVER=sparse)", False,
+                          qs.main, argv)
+    assert got["single"] == want["single"], (got["single"], want["single"])
+    for policy in qs.POLICIES:
+        a, b = got["online"][policy], want["online"][policy]
+        assert same_records(a, b) and a.avg_throughput == b.avg_throughput, policy
+    log(f"[examples] quickstart: Fig. 2 and {len(qs.POLICIES)} policies' records identical on "
+        f"the kernel and the plain path; {n} JRBA launches; {seconds:.2f} s on the kernel "
+        f"[{card}]")
+    return n
+
+
+def serving_example(device, card) -> None:
+    """``examples/torch_serve_cluster.py``'s serving demo on the card, and
+    with the model kernels routed to their plain versions: the same tokens.
+    The engine prefills by teacher-forced decode steps, tick for tick the
+    JAX package's engine, and decode is plain PyTorch, so neither run
+    launches a kernel (held to 0): a serving smoke, no kernel's path."""
+    demo = load_script("examples/torch_serve_cluster.py")
+    t0 = time.perf_counter()
+    got, _ = counted_all("examples/torch_serve_cluster.py serving demo",
+                              {}, demo.serving_demo, device)
+    seconds = time.perf_counter() - t0
+    with plain_kernels():
+        want, _ = counted_all("examples/torch_serve_cluster.py serving demo (plain)", {},
+                              demo.serving_demo, device)
+    assert [r.uid for r in got] == [r.uid for r in want]
+    assert [r.output for r in got] == [r.output for r in want], "served tokens differ"
+    log(f"[examples] serving demo: {len(got)} requests, {sum(len(r.output) for r in got)} "
+        f"tokens, the plain path's tokens; no kernel launches; {seconds:.2f} s [{card}]")
+
+
+def train_example(device, card) -> tuple[int, dict]:
+    """``examples/torch_train_100m.py``'s 100m preset for EXAMPLE_TRAIN_STEPS
+    steps, checkpointing halfway; then, its last snapshot unflagged, a second
+    run that resumes from the halfway one: each resumed step's loss within
+    ``TRAIN_LIMITS["loss"]`` of the uninterrupted run's. Exactly
+    EXAMPLE_TRAIN_LAUNCHES bf16 flash launches a step. Returns the
+    uninterrupted run's launches and its record."""
+    demo = load_script("examples/torch_train_100m.py")
+    ckpt = EXAMPLES_OUT / "train_100m_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps, every = EXAMPLE_TRAIN_STEPS, EXAMPLE_TRAIN_STEPS // 2
+    args = ("100m", steps, str(ckpt), str(device))
+    t0 = time.perf_counter()
+    full, counts = counted_all(
+        f"examples/torch_train_100m.py --preset 100m, {steps} steps",
+        {k: n * steps for k, n in EXAMPLE_TRAIN_LAUNCHES.items()},
+        demo.train, *args, ckpt_every=every, log_every=1)
+    seconds = time.perf_counter() - t0
+    (ckpt / f"step_{steps:08d}" / "COMPLETE").unlink()
+    resumed, _ = counted_all(
+        f"examples/torch_train_100m.py --preset 100m, resumed at step {every}",
+        {k: n * (steps - every) for k, n in EXAMPLE_TRAIN_LAUNCHES.items()},
+        demo.train, *args, ckpt_every=every, log_every=1)
+    assert len(resumed["losses"]) == steps - every, resumed["losses"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(resumed["losses"], full["losses"][every:])]
+    _, batch, seq = demo.PRESETS["100m"]
+    steady = sorted(full["step_seconds"][1:])[len(full["step_seconds"][1:]) // 2]
+    rec = {"preset": "100m", "batch": batch, "seq": seq, "steps": steps, "resumed_at": every,
+           "losses": full["losses"], "resumed_losses": resumed["losses"],
+           "resume_loss_gaps": gaps, "limit": TRAIN_LIMITS["loss"], "call_s": seconds,
+           "first_step_ms": full["step_seconds"][0] * 1e3, "ms_per_step": steady * 1e3,
+           "tokens_per_s": batch * seq / steady,
+           "launches": counts["flash_attention_wgmma"]}
+    log(f"[examples] train_100m: {json.dumps(rec)} [{card}]")
+    assert all(np.isfinite(full["losses"])), full["losses"]
+    assert max(gaps) <= TRAIN_LIMITS["loss"], f"resumed losses {gaps} off the uninterrupted run"
+    return counts["flash_attention_wgmma"], rec
+
+
+def fleet_example(device, card) -> int:
+    """``examples/torch_fleet_demo.py``'s seven sections through the JRBA
+    kernel: every records-identical check True and no span deviation.
+    Returns the kernel's launches."""
+    demo = load_script("examples/torch_fleet_demo.py")
+    t0 = time.perf_counter()
+    out, n = counted("examples/torch_fleet_demo.py, seven sections (JRBA kernel)", True,
+                     demo.main, ["--device", str(device), "--out-dir",
+                                 str(EXAMPLES_OUT / "fleet_demo")])
+    seconds = time.perf_counter() - t0
+    same = {k: out[k]["same"] for k in ("speculative_rounds", "async_fleet", "churn_storm",
+                                        "churn_speculation")}
+    devs = {k: out[k]["dev"] for k in ("batched_fleet", "cosched_fleet")}
+    log(f"[examples] fleet demo: records identical {same}, span deviations {devs}; {n} JRBA "
+        f"launches; {seconds:.2f} s [{card}]")
+    assert all(same.values()) and not any(devs.values()), (same, devs)
+    return n
+
+
+def examples_phase(device, card) -> dict:
+    """The examples' twins on the card; returns the launches by path."""
+    t0 = time.perf_counter()
+    jrba = {"examples/torch_quickstart.py": quickstart_example(device, card)}
+    serving_example(device, card)
+    n, _ = train_example(device, card)
+    flash = {f"examples/torch_train_100m.py:{EXAMPLE_TRAIN_STEPS}_steps": n}
+    jrba["examples/torch_fleet_demo.py"] = fleet_example(device, card)
+    log(f"[time] examples phase {time.perf_counter() - t0:.1f} s")
+    return {"jrba_congestion": jrba, "flash_attention_wgmma": flash}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: ENTS placement of model stage graphs
+# ---------------------------------------------------------------------------
 def placement_phase(device) -> int:
-    got, n = counted("placement (place_job, JRBA kernel)", True, place_all, device)
-    want, _ = counted("placement (place_job, device=cpu)", False, place_all, "cpu")
+    """``examples/torch_serve_cluster.py``'s placement demo through the JRBA
+    kernel and on the CPU: the same reports."""
+    demo = load_script("examples/torch_serve_cluster.py")
+    got, n = counted("placement (place_job, JRBA kernel)", True, demo.placement_demo, device)
+    want, _ = counted("placement (place_job, device=cpu)", False, demo.placement_demo, "cpu")
     placed = 0
-    for (arch, _), a, b in zip(PLACEMENT_JOBS, got, want):
+    for (arch, _), a, b in zip(demo.JOBS, got, want):
         assert (a is None) == (b is None), f"{arch}: feasibility differs"
         if a is None:
             log(f"[place] {arch}: infeasible on both")
@@ -1646,7 +1802,7 @@ def scan_record(name: str, timings: list[dict], launches: int, by_path: dict,
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the scheduler's program stream through the kernel and the plain version
+# phase 10: the scheduler's program stream through the kernel and the plain version
 # ---------------------------------------------------------------------------
 class CapturingEngine(JRBAEngine):
     """Records every (net, flows, capacity) solve request it serves."""
@@ -1909,7 +2065,7 @@ def stream_phase(device, kernel_solver: str, plain_solver: str, *, seeds, n_jobs
 
 
 # ---------------------------------------------------------------------------
-# phase 10: fleets
+# phase 11: fleets
 # ---------------------------------------------------------------------------
 def max_record_dev(results_a, results_b) -> float:
     """Worst relative deviation between two runs' job records: zero only when
@@ -1995,25 +2151,44 @@ def fleet_phase(device, kernel_solver, plain_solver, card, *, lanes, small_lanes
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the dry run, in a child process beside the other phases
+# phase 12: the dry run, in a child process beside the other phases
 # ---------------------------------------------------------------------------
-# (arch, cell) on the single production mesh: a full-size training cell,
-# and a decode cell that puts MoE and the MLA cache through the hints
-DRYRUN_CELLS = [("internlm2-1.8b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k")]
+# (arch, cell) on the single production mesh: a full-size training cell, a
+# decode cell that puts MoE and the MLA cache through the hints, and the SSM
+# models' training cells, which run the causal conv's and the token shift's
+# zero padding on DTensors (their decode cells pad nothing; train_4k ran
+# faster than prefill_32k for both on a CPU, PERF.md section 4)
+DRYRUN_CELLS = [("internlm2-1.8b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k"),
+                ("zamba2-7b", "train_4k"), ("rwkv6-3b", "train_4k")]
 DRYRUN_CHILD = "--dry-run-child"
 DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun"
+# internlm2-1.8b x train_4k's peak bytes a device as PyTorch 2.13 reads it
+# (the dry run on a CPU, PERF.md section 6): the card's PyTorch must read it
+# within PEAK_RTOL
+DRYRUN_PEAK = {("internlm2-1.8b", "train_4k"): 7.51e10}
+PEAK_RTOL = 0.1
+HILLCLIMB = ["--arch", "internlm2-1.8b", "--cell", "train_4k", "--breakdown"]
 
 
 def dryrun_child() -> int:
     """The dry run's cells on the single production mesh (256 fake ranks,
-    device type cuda), then the (1, 1) mesh's static bytes of
-    internlm2-1.8b's training state. Prints one JSON line."""
+    device type cuda), ``scripts/torch_hillclimb.py`` on internlm2-1.8b x
+    train_4k, then the (1, 1) mesh's static bytes of internlm2-1.8b's
+    training state. Prints one JSON line."""
     out: dict = {"cells": []}
     t0 = time.perf_counter()
     with dryrun.fake_world(256):
         mesh = make_production_mesh(device_type="cuda")
         for arch, cell in DRYRUN_CELLS:
+            t1 = time.perf_counter()
             out["cells"].append(dryrun.run_cell(arch, cell, mesh, "single"))
+            out["cells"][-1]["child_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    hc = load_script("scripts/torch_hillclimb.py").main(HILLCLIMB)
+    out["hillclimb"] = {"terms": hc["terms"], "dominant": hc["dominant"], "per_op": hc["per_op"],
+                        "flops": hc["info"]["flops"], "breakdown": hc["breakdown"],
+                        "collectives": hc["info"]["collectives"]["total"],
+                        "child_s": time.perf_counter() - t1}
     with dryrun.fake_world(1):
         _, aux = dryrun.lower_cell(TRAIN_ARCH, "train_4k", make_debug_mesh((1, 1)))
         out["static_1x1"] = aux["static_state_bytes_per_device"]
@@ -2033,8 +2208,11 @@ def start_dryrun() -> subprocess.Popen:
 
 
 def finish_dryrun(child: subprocess.Popen, card: str) -> dict:
-    """Waits for the child; both cells must be ``ok``, and the (1, 1) static
-    bytes must equal the training state the card held. Prints both records."""
+    """Waits for the child; every cell must be ``ok``, internlm2-1.8b x
+    train_4k's peak within PEAK_RTOL of PyTorch 2.13's, the hillclimb's
+    FLOPs and collective bytes those of the same cell's record, and the
+    (1, 1) static bytes the training state the card held. Prints the
+    records."""
     t0 = time.perf_counter()
     rc = child.wait(timeout=600)
     waited = time.perf_counter() - t0
@@ -2047,6 +2225,17 @@ def finish_dryrun(child: subprocess.Popen, card: str) -> dict:
         tb = rec.pop("traceback", None)
         log(f"[dryrun] {json.dumps(rec)}")
         assert rec["ok"], f"dry run {rec['arch']} x {rec['cell']}: {rec.get('error')}\n{tb}"
+        want = DRYRUN_PEAK.get((rec["arch"], rec["cell"]))
+        if want is not None:
+            gap = abs(rec["memory"]["peak_bytes"] - want) / want
+            log(f"[dryrun] {rec['arch']} x {rec['cell']} peak {rec['memory']['peak_bytes']} "
+                f"bytes a device, {gap:.4f} off PyTorch 2.13's {want:.4g} (torch "
+                f"{torch.__version__})")
+            assert gap <= PEAK_RTOL, f"{rec['arch']} x {rec['cell']}: peak {gap:.3f} off"
+    hc = out["hillclimb"]
+    log(f"[hillclimb] {' '.join(HILLCLIMB)}: {json.dumps(hc)}")
+    ref = out["cells"][0]
+    assert (hc["flops"], hc["collectives"]) == (ref["flops"], ref["collectives"]["total"]), hc
     log(f"[dryrun] {TRAIN_ARCH} training state on a (1, 1) mesh: {out['static_1x1']} bytes; "
         f"on the card: {CARD_STATE_BYTES[TRAIN_ARCH]} bytes")
     assert out["static_1x1"] == CARD_STATE_BYTES[TRAIN_ARCH], out["static_1x1"]
@@ -2110,6 +2299,9 @@ def run(child: subprocess.Popen) -> int:
     for name, counts in train_paths.items():
         model_paths[name].update(counts)
     log(f"[time] after training phase {time.perf_counter() - t_start:.1f} s")
+    example_paths = examples_phase(device, card)
+    model_paths["flash_attention_wgmma"].update(example_paths["flash_attention_wgmma"])
+    log(f"[time] after examples phase {time.perf_counter() - t_start:.1f} s")
     placement_launches = placement_phase(device)
     record, by_path = stream_phase(device, "cuda", "sparse", seeds=(0, 1), n_jobs=8)
     log(f"[time] after stream phase {time.perf_counter() - t_start:.1f} s")
@@ -2118,6 +2310,7 @@ def run(child: subprocess.Popen) -> int:
     # stands beside it
     record["launches"] = by_path["fleet_256_lockstep"]
     by_path["placement"] = placement_launches
+    by_path.update(example_paths["jrba_congestion"])
     record["evidence"] = jrba_sass
     record["launches_by_path"] = by_path
     # each model kernel's main path is the S=32768 prefill of its model:

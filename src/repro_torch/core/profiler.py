@@ -20,12 +20,12 @@ import numpy as np
 
 from .graph import JobGraph, NetworkGraph
 
-__all__ = ["JobProfile", "profile_job", "NodeClass", "TPU_V5E"]
+__all__ = ["H100", "JobProfile", "profile_job", "NodeClass", "TPU_V5E"]
 
 
 @dataclasses.dataclass(frozen=True)
 class NodeClass:
-    """A hardware class (paper Tab. I rows; here also TPU chips)."""
+    """A hardware class (paper Tab. I rows; here also accelerator chips)."""
 
     name: str
     peak_flops: float  # FLOP/s (or abstract units/s)
@@ -34,6 +34,9 @@ class NodeClass:
 
 
 TPU_V5E = NodeClass("tpu-v5e", peak_flops=197e12, hbm_bw=819e9, mem=16e9)
+# one NVIDIA H100 SXM (NVIDIA's data sheet, at its 700 W limit): dense bf16
+# tensor-core FLOP/s, HBM3 bytes/s, 80 GB
+H100 = NodeClass("h100-sxm", peak_flops=989e12, hbm_bw=3.35e12, mem=80e9)
 
 
 @dataclasses.dataclass

@@ -44,12 +44,22 @@ from .grad import plain_gradients
 
 __all__ = [
     "CHUNKS", "SSDScan", "block_cols", "check_ranks", "chunk_tile", "empty_in_layout",
-    "ssd_chunked", "ssd_scan_f32", "ssd_scan_hsd", "ssd_scan_mma", "ssd_scan_plain",
+    "intra_decay", "ssd_chunked", "ssd_scan_f32", "ssd_scan_hsd", "ssd_scan_mma", "ssd_scan_plain",
 ]
 
 CHUNKS = (16, 32, 64, 128)  # the kernels' tile instances, in rows
 MAX_STATE = 64  # N: both kernels pad the state's rows to 64
 DTYPES = (torch.bfloat16, torch.float32)
+
+
+def intra_decay(diff: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``exp(diff)`` where ``mask`` (j <= i), else 0. Above the diagonal
+    ``diff = cum_i - cum_j`` is positive and overflows ``exp`` where a chunk's
+    decays sum past f32's range, so the exponent is masked to 0 before the
+    ``exp``: the select's gradient then meets ``exp(0)`` there, not
+    ``0 * inf``. The JAX twin takes ``exp(diff)`` whole, and its gradient is
+    NaN there; the values are the same."""
+    return torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
 
 
 def ssd_chunked(
@@ -62,14 +72,16 @@ def ssd_chunked(
     chunk: int = 64,
     init_state: torch.Tensor | None = None,  # (B, H, N, P)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B, S, H, P) in x's dtype, final_state (B, H, N, P) f32)."""
+    """Returns (y (B, S, H, P) in x's dtype, final_state (B, H, N, P) f32).
+    Computes in f32, as the JAX twin, or in f64 where x is f64 (the
+    gradient tests' exact run)."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
     if S % Q:
         raise ValueError(f"seq {S} not divisible by chunk {Q}")
     nc = S // Q
-    f32 = torch.float32
+    f32 = torch.promote_types(x.dtype, torch.float32)
     xc = x.reshape(B, nc, Q, H, P).to(f32)
     dtc = dt.reshape(B, nc, Q, H).to(f32)
     Bc = Bm.reshape(B, nc, Q, N).to(f32)
@@ -77,12 +89,11 @@ def ssd_chunked(
     la = dtc * A.to(f32)  # (B, nc, Q, H) log-decay, <= 0
     cum = torch.cumsum(la, dim=2)  # inclusive
 
-    # intra-chunk (masked "attention" form); exp only where j <= i: the
-    # masked entries may be +inf, and the select drops them
+    # intra-chunk (masked "attention" form)
     G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, Q, Q, H) cum_i - cum_j
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    L = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    L = intra_decay(diff, mask[None, None, :, :, None])
     # the JAX twin's four-operand einsums, two operands at a time: torch's
     # einsum would otherwise materialize (B, nc, Q, Q, H, P)
     W = G[..., None] * L * dtc[:, :, None, :, :]  # (B, nc, Q, Q, H)

@@ -22,7 +22,7 @@ How a cell runs:
 * the cell's step — ``make_train_step``, ``prefill`` or ``decode_step`` —
   runs once inside ``implicit_replication()`` (the models mix plain tensors,
   such as masks, positions and RoPE tables, with DTensors), under
-  ``MemTracker`` and :class:`_CellCounter`, a dispatch mode that lets
+  :class:`_CellCounter`, a dispatch mode that lets
   DTensor lower each op to its local ops and functional collectives first
   and then counts those: per device, as the JAX package's SPMD-partitioned
   module counts. The model kernels' wrappers take their plain versions on
@@ -37,10 +37,11 @@ A record has the reference's keys: ``static_state_bytes_per_device``;
 no elementwise ops); ``bytes_accessed`` (the convention here: every local aten
 op that is not a view or a collective counts the logical bytes of each
 tensor it reads and each it writes, unfused, so a fused kernel on the card
-moves fewer); ``memory`` (``MemTracker``'s peak over the run, the state
-included) or ``memory_error``; ``collectives`` (output bytes by kind, their
-``counts`` and ``total``); ``corrected``, which here is the direct count:
-the port's stack is a Python loop and is counted whole, where XLA counts a
+moves fewer); ``memory`` (the peak of the bytes the state and the cell's
+local ops hold at once, counted by the mode that counts the FLOPs, so
+DTensor's propagation tensors stay out); ``collectives`` (output bytes by
+kind, their ``counts`` and ``total``); ``corrected``, which here is the
+direct count: the port's stack is a Python loop and is counted whole, where XLA counts a
 scan body once and the reference extrapolates; ``lower_s`` (building and
 placing the state), ``compile_s`` (the counted run), ``ok`` and ``error``.
 
@@ -60,6 +61,7 @@ import math
 import os
 import time
 import traceback
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -69,6 +71,7 @@ from torch._guards import active_fake_mode
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..configs import ARCH_IDS, get_config
 from ..configs.shapes import CELLS, applicable
@@ -168,8 +171,12 @@ class _ReshardOnRefusal(TorchDispatchMode):
     shard contiguous and run the op again. The moves, gathers and copies
     are the run's and are counted; so are, for the record, the refusals
     (``refused``), the moves and gathers that made an op run, by mesh dim
-    (``moved``, ``gathered``), and the copies (``copied``). A dispatch
-    mode, so it reaches the backward pass and remat's recompute too."""
+    (``moved``, ``gathered``), and the copies (``copied``). An op for which
+    the PyTorch at hand has no DTensor strategy at all (``flip``, in the
+    backward of ``cumsum``, on PyTorch 2.11) runs on each local shard
+    (:func:`_flip_shards`; ``local``), once no mesh dim shards a flipped dim
+    (else that refuses, and resharding follows). A dispatch mode, so it
+    reaches the backward pass and remat's recompute too."""
 
     def __init__(self, batch: tuple[str, ...]):
         super().__init__()
@@ -178,6 +185,7 @@ class _ReshardOnRefusal(TorchDispatchMode):
         self.moved: dict[str, int] = {}
         self.gathered: dict[str, int] = {}
         self.copied = 0
+        self.local = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -189,9 +197,16 @@ class _ReshardOnRefusal(TorchDispatchMode):
             if _contiguity(e):
                 self.copied += 1
                 return func(*_deep(_contiguous, args), **_deep(_contiguous, kwargs))
-            if not _refusal(e):
-                raise
             err = e
+        if _no_strategy(err) and func is torch.ops.aten.flip.default:
+            self.local += 1
+            func = _flip_shards  # shard by shard, here and in the resharding below
+            try:
+                return func(*args, **kwargs)
+            except RuntimeError as e:
+                err = e
+        if not _refusal(err):
+            raise err
         self.refused += 1
         mesh = _dtensors((args, kwargs))[0].device_mesh
         names = mesh.mesh_dim_names or tuple(str(m) for m in range(mesh.ndim))
@@ -225,11 +240,37 @@ class _ReshardOnRefusal(TorchDispatchMode):
 
     def record(self) -> dict:
         """The record's ``reshard``: ``refused``, ``moved`` and ``gathered``
-        by mesh dim, ``copied``, and ``batch_gathered``, the gathers over a
-        batch dim (the batch then replicated, the counts no longer split)."""
+        by mesh dim, ``copied``, ``local``, and ``batch_gathered``, the
+        gathers over a batch dim (the batch then replicated, the counts no
+        longer split)."""
         return {"refused": self.refused, "moved": dict(self.moved),
-                "gathered": dict(self.gathered), "copied": self.copied,
+                "gathered": dict(self.gathered), "copied": self.copied, "local": self.local,
                 "batch_gathered": sum(n for d, n in self.gathered.items() if d in self.batch)}
+
+
+def _no_strategy(e: RuntimeError) -> bool:
+    """DTensor has no sharding strategy registered for the op."""
+    return "does not have a sharding strategy registered" in str(e)
+
+
+def _flip_shards(x: DTensor, dims) -> DTensor:
+    """``aten.flip`` of a DTensor as each local shard's flip, in the same
+    placements; refuses (as DTensor's propagation does) while a mesh dim
+    shards a flipped dim."""
+    dims = [d % x.ndim for d in dims]
+    if any(isinstance(p, Shard) and p.dim in dims for p in x.placements):
+        raise RuntimeError("Sharding propagation failed: flip across a sharded dim")
+    local = x._local_tensor.flip(dims)
+    return DTensor.from_local(local, x.device_mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=_dense_stride(x.shape))
+
+
+def _dense_stride(shape) -> tuple[int, ...]:
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.append(n)
+        n *= size
+    return tuple(reversed(stride))
 
 
 def _refusal(e: RuntimeError) -> bool:
@@ -437,18 +478,41 @@ class _CellCounter(TorchDispatchMode):
     ``NotImplemented`` for a DTensor op lets DTensor run first; its local
     ops and collectives come back here): their FLOPs by
     ``FlopCounterMode``'s rules (``torch.utils.flop_counter.flop_registry``),
-    their bytes and the collectives' bytes. Only the cell's own ops count:
-    ops on ``meta`` tensors outside a fake mode. DTensor's sharding
-    propagation runs ops of its own, under a nested fake mode and on host
-    tensors, the first time it meets an op; ``FlopCounterMode`` entered
-    around the run counts those too (up to 1.39x the smoke prefill's FLOPs,
-    by how cold the propagation cache is)."""
+    their bytes, the collectives' bytes, and the memory they hold. Only the
+    cell's own ops count: ops on ``meta`` tensors outside a fake mode.
+    DTensor's sharding propagation runs ops of its own, under a nested fake
+    mode and on host tensors, the first time it meets an op;
+    ``FlopCounterMode`` entered around the run counts those too (up to 1.39x
+    the smoke prefill's FLOPs, by how cold the propagation cache is), and
+    PyTorch 2.11's ``MemTracker`` counts their tensors as memory.
+
+    Memory: every storage a counted op returns is live from that op until
+    its last tensor is freed; ``peak`` is the largest sum of the live
+    storages' bytes over the run, the state's (:meth:`hold`) included."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
         self.bytes_accessed = 0
-        self.collectives: list[tuple[str, int]] = []
+        self.collectives: list[tuple[str, int, str]] = []  # (kind, bytes, "dtype[shape]")
+        self.live = 0
+        self.peak = 0
+        self._held = WeakIdKeyDictionary()  # storage -> its bytes, while it lives
+
+    def hold(self, tensors) -> None:
+        """Count the storages of ``tensors`` (local shards) live until freed."""
+        for t in tensors:
+            st = t.untyped_storage()
+            if st in self._held:
+                continue
+            n = st.nbytes()
+            self._held[st] = n
+            weakref.finalize(st, self._free, n)
+            self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def _free(self, n: int) -> None:
+        self.live -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
@@ -460,12 +524,14 @@ class _CellCounter(TorchDispatchMode):
         if active_fake_mode() is not None or not any(
                 t.device.type == "meta" for t in (*ins, *outs)):
             return out
+        self.hold(outs)
         ns = getattr(func, "namespace", "")
         name = getattr(func, "__name__", str(func)).split(".")[0]
         if ns == "_c10d_functional":
             kind = _kind(name)
             if kind is not None:
-                self.collectives.append((kind, sum(_logical_bytes(t) for t in outs)))
+                self.collectives.append((kind, sum(_logical_bytes(t) for t in outs),
+                                         " ".join(map(_shape_name, outs))))
             return out
         count = flop_registry.get(func._overloadpacket)
         if count is not None:
@@ -475,12 +541,21 @@ class _CellCounter(TorchDispatchMode):
         return out
 
 
+def _shape_name(t: torch.Tensor) -> str:
+    """``bf16[256,4096]``: a tensor's dtype and shape as HLO writes them."""
+    hlo = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32",
+           torch.float64: "f64", torch.int32: "s32", torch.int64: "s64", torch.int8: "s8",
+           torch.uint8: "u8", torch.bool: "pred"}
+    dtype = hlo.get(t.dtype, str(t.dtype).replace("torch.", ""))
+    return f"{dtype}[{','.join(map(str, t.shape))}]"
+
+
 def collective_bytes(events) -> dict:
     """Sum the output bytes of each collective, by kind, from ``(kind,
-    bytes)`` pairs; ``counts`` a kind, ``total`` over the kinds."""
+    bytes, ...)`` events; ``counts`` a kind, ``total`` over the kinds."""
     out = {k: 0 for k in COLLECTIVES}
     counts = {k: 0 for k in COLLECTIVES}
-    for kind, nbytes in events:
+    for kind, nbytes, *_ in events:
         out[kind] += nbytes
         counts[kind] += 1
     out["counts"] = counts
@@ -488,45 +563,31 @@ def collective_bytes(events) -> dict:
     return out
 
 
-def analyze(run, state=None, batch: tuple[str, ...] = ()) -> dict:
+def analyze(run, state=None, batch: tuple[str, ...] = (), events: list | None = None) -> dict:
     """Run the cell once under the counters; returns the record's
-    ``flops``, ``bytes_accessed``, ``memory`` (or ``memory_error``),
-    ``collectives`` and ``reshard`` (what :class:`_ReshardOnRefusal` did;
-    ``batch`` names the mesh's batch dims)."""
-    from torch.distributed._tools.mem_tracker import MemTracker
-
+    ``flops``, ``bytes_accessed``, ``memory`` (``peak_bytes``, the most the
+    state and the cell's local ops held at once on a device; ``by_kind``:
+    the ``state``'s bytes and the ``ops``' at that peak), ``collectives``
+    and ``reshard`` (what :class:`_ReshardOnRefusal` did; ``batch`` names
+    the mesh's batch dims). ``events``, where given, is extended with each
+    collective's ``(kind, bytes, "dtype[shape]")``."""
     counter = _CellCounter()
     reshard = _ReshardOnRefusal(batch)
-    mem = MemTracker()
-    info: dict = {}
     local = [t.to_local() if isinstance(t, DTensor) else t for t in tree_leaves(state)]
-    try:
-        mem.track_external(*local)
-        mem_cm = mem
-    except Exception as e:  # noqa: BLE001 - the record says why memory is missing
-        info["memory_error"] = f"{type(e).__name__}: {e}"
-        mem_cm = contextlib.nullcontext()
-    with implicit_replication(), mem_cm, counter, reshard:
+    counter.hold(local)
+    state_bytes = counter.live
+    with implicit_replication(), counter, reshard:
         run()
-    info["flops"] = float(counter.flops)
-    info["bytes_accessed"] = float(counter.bytes_accessed)
-    if "memory_error" not in info:
-        try:
-            peak = mem.get_tracker_snapshot("peak")
-            by_kind: dict = {}
-            for per_device in peak.values():
-                for kind, nbytes in per_device.items():
-                    key = getattr(kind, "value", str(kind))
-                    by_kind[key] = by_kind.get(key, 0) + int(nbytes)
-            info["memory"] = {
-                "peak_bytes": by_kind.pop("Total", sum(by_kind.values())),
-                "by_kind": by_kind,
-            }
-        except Exception as e:  # noqa: BLE001
-            info["memory_error"] = f"{type(e).__name__}: {e}"
-    info["collectives"] = collective_bytes(counter.collectives)
-    info["reshard"] = reshard.record()
-    return info
+    if events is not None:
+        events.extend(counter.collectives)
+    return {
+        "flops": float(counter.flops),
+        "bytes_accessed": float(counter.bytes_accessed),
+        "memory": {"peak_bytes": counter.peak,
+                   "by_kind": {"state": state_bytes, "ops": counter.peak - state_bytes}},
+        "collectives": collective_bytes(counter.collectives),
+        "reshard": reshard.record(),
+    }
 
 
 def run_cell(arch: str, cell_name: str, mesh, mesh_name: str) -> dict:

@@ -15,7 +15,6 @@ population variance, the D skip term added in the activation dtype.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels import ops
 from .layers import dense_init, silu, truncated_normal
@@ -38,6 +37,14 @@ F32 = torch.float32
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float, device) -> Tensor:
     return torch.rand(shape, generator=gen, dtype=F32, device=device) * (hi - lo) + lo
+
+
+def _pad_front(x: Tensor, n: int) -> Tensor:
+    """``x`` (B, S, C) with ``n`` zero rows before its sequence: a
+    concatenation with a zero block, the bits of ``F.pad(x, (0, 0, n, 0))``.
+    Not ``F.pad`` itself: PyTorch 2.11's DTensor fails ``constant_pad_nd``
+    with an IndexError in its sharding planner (the dry run)."""
+    return torch.cat([x.new_zeros((x.shape[0], n, x.shape[2])), x], dim=1)
 
 
 def softplus(x: Tensor) -> Tensor:
@@ -82,7 +89,7 @@ def mamba2_apply(p: dict, cfg, x: Tensor, *, chunk: int = 64) -> Tensor:
     z, xBC, dt_raw = _mamba2_split(p, cfg, x @ p["in_proj"])
     # causal depthwise conv, kernel d_conv: d_conv shifted products summed in
     # order, each rounded to the activation dtype (F.conv1d would round once)
-    pad = F.pad(xBC, (0, 0, cfg.d_conv - 1, 0))
+    pad = _pad_front(xBC, cfg.d_conv - 1)
     conv = sum(pad[:, i : i + S] * p["conv_w"][i][None, None, :] for i in range(cfg.d_conv))
     xBC = silu(conv)
     xs = xBC[..., :din].reshape(B, S, H, P)  # a strided view: the kernel reads it in place
@@ -177,7 +184,7 @@ def _rwkv6_out(p: dict, cfg, y: Tensor, g: Tensor, B: int, S: int, d: int) -> Te
 def rwkv6_apply(p: dict, cfg, x: Tensor, *, chunk: int = 16) -> Tensor:
     B, S, d = x.shape
     H = d // RWKV_HEAD
-    xprev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    xprev = _pad_front(x, 1)[:, :-1]
     xr, xk, xv, xg, xw = _rwkv6_mix(p, x, xprev)
     r = (xr @ p["wr"]).reshape(B, S, H, RWKV_HEAD)
     k = (xk @ p["wk"]).reshape(B, S, H, RWKV_HEAD)

@@ -1,4 +1,4 @@
-from .checkpoint import AsyncCheckpointer, latest_step, restore, save
+from .checkpoint import AsyncCheckpointer, latest_step, restore, save, zstd_stored, zstd_unstored
 from .fault_tolerance import HeartbeatMonitor, StragglerPolicy, plan_elastic_remesh
 from .losses import cross_entropy, total_loss
 from .train_step import TrainConfig, init_train_state, make_train_step
@@ -16,4 +16,6 @@ __all__ = [
     "restore",
     "save",
     "total_loss",
+    "zstd_stored",
+    "zstd_unstored",
 ]

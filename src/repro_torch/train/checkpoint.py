@@ -9,7 +9,10 @@ under the dtype name ``bfloat16``. Writes go to a temporary name and are
 renamed, so a crash mid-write never corrupts the latest snapshot;
 ``latest_step`` returns complete snapshots only. ``msgpack`` and
 ``zstandard`` are imported when a snapshot is written or read, never when
-this module is.
+this module is. Without ``zstandard`` a leaf is stored in a zstd frame of
+raw (uncompressed) blocks, which ``zstandard`` reads as any other frame,
+and such frames are read back without it (:func:`zstd_stored`,
+:func:`zstd_unstored`); a compressed frame still needs ``zstandard``.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import importlib
 import os
 import re
 import threading
+import warnings
 from typing import Any
 
 import numpy as np
@@ -25,7 +29,7 @@ import torch
 from ..obs.trace import dumps_strict
 from ..tree import tree_map_with_path, tree_paths
 
-__all__ = ["AsyncCheckpointer", "latest_step", "restore", "save"]
+__all__ = ["AsyncCheckpointer", "latest_step", "restore", "save", "zstd_stored", "zstd_unstored"]
 
 _FLAG = "COMPLETE"
 
@@ -39,6 +43,60 @@ def _require(name: str):
             f"checkpointing requires the optional dependency {name!r}; install it to "
             "save or restore checkpoints"
         ) from e
+
+
+_ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
+_ZSTD_BLOCK = 1 << 17  # a block's largest size, 128 KiB
+
+
+def zstd_stored(data: bytes) -> bytes:
+    """``data`` as one zstd frame of raw blocks (RFC 8878): the content size
+    in 8 bytes, a 128 KiB window, no checksum, no dictionary."""
+    out = [_ZSTD_MAGIC, bytes([0xC0, 0x38]), len(data).to_bytes(8, "little")]
+    view, pos = memoryview(data), 0
+    while True:
+        block = view[pos:pos + _ZSTD_BLOCK]
+        pos += len(block)
+        last = pos >= len(data)
+        out += [((len(block) << 3) | last).to_bytes(3, "little"), block]  # type 0: raw
+        if last:
+            return b"".join(out)
+
+
+def zstd_unstored(frame: bytes) -> bytes:
+    """The content of one zstd frame of raw and RLE blocks (what
+    :func:`zstd_stored` writes); a compressed block raises."""
+    if frame[:4] != _ZSTD_MAGIC:
+        raise ValueError("not a zstd frame")
+    desc = frame[4]
+    single = (desc >> 5) & 1
+    pos = 5 + (not single) + (0, 1, 2, 4)[desc & 3] + (single, 2, 4, 8)[desc >> 6]
+    out = []
+    while True:
+        head = int.from_bytes(frame[pos:pos + 3], "little")
+        pos += 3
+        kind, size = (head >> 1) & 3, head >> 3
+        if kind == 0:
+            out.append(frame[pos:pos + size])
+            pos += size
+        elif kind == 1:
+            out.append(frame[pos:pos + 1] * size)
+            pos += 1
+        else:
+            raise ModuleNotFoundError("this checkpoint's blocks are zstd-compressed: reading it "
+                                      "requires the optional dependency 'zstandard'")
+        if head & 1:
+            return b"".join(out)
+
+
+def _zstd():
+    """(compress, decompress): ``zstandard``'s at level 3, else
+    :func:`zstd_stored` and :func:`zstd_unstored`."""
+    try:
+        zstandard = importlib.import_module("zstandard")
+    except ModuleNotFoundError:
+        return zstd_stored, zstd_unstored
+    return (lambda data: zstandard.compress(data, 3)), zstandard.decompress
 
 
 def _to_numpy(t: torch.Tensor) -> tuple[str, np.ndarray]:
@@ -55,12 +113,15 @@ def _flatten(tree) -> dict[str, tuple[str, np.ndarray]]:
 
 
 def _write(directory: str, step: int, flat: dict, shard_id: int) -> str:
-    zstandard, msgpack = _require("zstandard"), _require("msgpack")
+    (compress, _), msgpack = _zstd(), _require("msgpack")
+    if compress is zstd_stored:  # shown once a process by the default filter
+        warnings.warn("zstandard is not installed: checkpoint leaves are written uncompressed, "
+                      "as zstd frames of raw blocks", stacklevel=2)
     d = os.path.join(directory, f"step_{step:08d}")
     os.makedirs(d, exist_ok=True)
     payload = {
         k: {"dtype": dt, "shape": list(a.shape),
-            "data": zstandard.compress(np.ascontiguousarray(a).tobytes(), 3)}
+            "data": compress(np.ascontiguousarray(a).tobytes())}
         for k, (dt, a) in flat.items()
     }
     tmp = os.path.join(d, f".shard_{shard_id}.tmp")
@@ -84,7 +145,7 @@ def restore(directory: str, step: int, like: Any, *, shard_id: int = 0) -> Any:
     """Restore into the structure of ``like``: each leaf on its device, in
     its dtype, requiring a gradient where it does. A missing leaf or a shape
     mismatch raises (resharding goes through ``fault_tolerance.reshard_like``)."""
-    zstandard, msgpack = _require("zstandard"), _require("msgpack")
+    (_, decompress), msgpack = _zstd(), _require("msgpack")
     d = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(d, f"shard_{shard_id}.ckpt"), "rb") as f:
         payload = msgpack.unpackb(f.read(), raw=False)
@@ -95,7 +156,7 @@ def restore(directory: str, step: int, like: Any, *, shard_id: int = 0) -> Any:
     def load(path: str, ref: torch.Tensor) -> torch.Tensor:
         spec = payload[path]
         bf16 = spec["dtype"] == "bfloat16"
-        arr = np.frombuffer(zstandard.decompress(spec["data"]),
+        arr = np.frombuffer(decompress(spec["data"]),
                             dtype=np.uint16 if bf16 else np.dtype(spec["dtype"]))
         arr = arr.reshape(spec["shape"])
         if tuple(arr.shape) != tuple(ref.shape):

@@ -3,6 +3,7 @@ the JAX package's, on the CPU: the same batches bit for bit, the checkpoint
 format each package reads from the other, and the same host-side
 decisions."""
 import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -139,6 +140,52 @@ def test_checkpoint_format_is_the_reference_format(tmp_path):
     like = {"a": torch.zeros(4, 3), "b": [torch.zeros(5, dtype=torch.int32)],
             "c": torch.zeros(6, dtype=torch.bfloat16)}
     _equal(ttrain.restore(str(tmp_path / "jax"), 1, like), tree)
+
+
+@pytest.mark.parametrize("size", [0, 1, 1 << 17, (1 << 17) + 1, 300_001])
+def test_stored_zstd_frames_read_by_zstandard(size):
+    """Without ``zstandard`` a leaf's bytes go into a zstd frame of raw
+    blocks: ``zstandard`` reads it, and so does the port without it, as it
+    reads ``zstandard``'s frames of incompressible bytes; a compressed frame
+    needs ``zstandard``."""
+    import zstandard
+
+    data = np.random.default_rng(size).integers(0, 256, size, dtype=np.uint8).tobytes()
+    frame = ttrain.zstd_stored(data)
+    assert zstandard.decompress(frame) == data
+    assert ttrain.zstd_unstored(frame) == data
+    assert ttrain.zstd_unstored(zstandard.compress(data, 3)) == data
+    with pytest.raises(ModuleNotFoundError, match="zstandard"):
+        ttrain.zstd_unstored(zstandard.compress(b"abc" * 1000 + data, 3))
+
+
+def test_zstandard_rle_blocks_read_without_zstandard():
+    """``zstandard`` writes a run of one byte as RLE blocks after a first
+    block of another kind: a raw first block (incompressible bytes) and RLE
+    blocks after it (a zero tail) are read without ``zstandard``."""
+    import zstandard
+
+    data = np.random.default_rng(3).integers(0, 256, 1 << 17, dtype=np.uint8).tobytes()
+    data += bytes(1 << 18)
+    frame = zstandard.compress(data, 3)
+    assert len(frame) < (1 << 17) + 64  # the zero tail took a few bytes: RLE
+    assert ttrain.zstd_unstored(frame) == data
+
+
+def test_checkpoint_without_zstandard_is_the_reference_format(tmp_path, monkeypatch):
+    """A snapshot written where ``zstandard`` is missing restores there bit
+    for bit, and the JAX package (with ``zstandard``) reads it too."""
+    tree = {"a": torch.randn(300, 200, generator=torch.Generator().manual_seed(2)),
+            "c": torch.arange(6, dtype=torch.float32).to(torch.bfloat16)}
+    like = {"a": torch.zeros(300, 200), "c": torch.zeros(6, dtype=torch.bfloat16)}
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "zstandard", None)  # import zstandard raises
+        with pytest.warns(UserWarning, match="uncompressed"):
+            ttrain.save(str(tmp_path), 1, tree)
+        _equal(ttrain.restore(str(tmp_path), 1, like), tree)
+    back = jtrain.restore(str(tmp_path), 1, {"a": jnp.zeros((300, 200), jnp.float32),
+                                             "c": jnp.zeros((6,), jnp.bfloat16)})
+    np.testing.assert_array_equal(np.asarray(back["a"]), tree["a"].numpy())
 
 
 def test_heartbeat_monitor_matches_reference():

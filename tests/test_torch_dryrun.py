@@ -354,7 +354,7 @@ def test_a_refused_view_moves_its_shard_before_it_gathers(debug_mesh):
     assert tuple(out.shape) == (4, 8, 3, 4)
     assert tuple(out.placements) == (Shard(0), Shard(0))
     assert tuple(out.to_local().shape) == (1, 8, 3, 4)
-    assert rec == {"refused": 1, "moved": {"model": 1}, "gathered": {}, "copied": 0,
+    assert rec == {"refused": 1, "moved": {"model": 1}, "gathered": {}, "copied": 0, "local": 0,
                    "batch_gathered": 0}
     # a batch of 2 cannot take both shards: the sequence dim does
     out, rec = _refused_view(debug_mesh, (2, 8, 12), [Shard(0), Shard(2)], (2, 8, 3, 4))
@@ -386,3 +386,72 @@ def test_a_cell_that_gathers_its_batch_fails(debug_mesh, monkeypatch):
     monkeypatch.setattr(dryrun, "analyze", gathering)
     bad = dryrun.run_cell("internlm2-1.8b-smoke", "prefill_smoke", debug_mesh, "debug")
     assert bad["ok"] is False and "3 refused ops gathered a batch dim" in bad["error"]
+
+
+# ---------------------------------------------------------------------------
+# the peak from the cell's local ops, and ops without a DTensor strategy
+# ---------------------------------------------------------------------------
+def test_the_peak_counts_the_cells_local_ops(debug_mesh):
+    """``memory`` is the most the state's local shards and the cell's local
+    ops held at once: a tensor of DTensor's propagation (under a nested fake
+    mode) and a host tensor are not the cell's and do not count, as PyTorch
+    2.11's ``MemTracker`` counted the first."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def meta(*local):  # f32 shards of (2 * local[0], ...) split over "data"
+        return DTensor.from_local(torch.empty(local, device="meta"), debug_mesh,
+                                  [Shard(0), Replicate()], run_check=False)
+
+    state = {"w": meta(8, 16), "x": meta(4, 16)}  # 512 + 256 bytes a device
+
+    def run():
+        y = state["x"] * 2.0  # 256 bytes
+        z = (y + 1.0) * y  # 256 and 256, the first freed after the product
+        del y
+        with FakeTensorMode():
+            torch.empty(1 << 20)  # a propagation tensor
+        torch.ones(1 << 20)  # a host tensor
+        return z
+
+    info = dryrun.analyze(run, state, ("data",))
+    assert info["memory"]["by_kind"] == {"state": 768, "ops": 768}
+    assert info["memory"]["peak_bytes"] == 1536
+
+
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    """A (1, 1) mesh over a real one-rank ``gloo`` group: values move."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}", rank=0,
+                            world_size=1)
+    try:
+        yield make_debug_mesh((1, 1), device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def _without_strategy(monkeypatch, op):
+    """``op`` as on a PyTorch whose DTensor has no strategy for it."""
+    prop = DTensor._op_dispatcher.sharding_propagator
+    tables = [t for t in vars(prop).values() if isinstance(t, dict) and op in t]
+    assert tables, op
+    for t in tables:
+        monkeypatch.delitem(t, op)
+
+
+def test_flip_without_a_strategy_runs_shard_by_shard(one_rank_mesh, monkeypatch):
+    """PyTorch 2.11's DTensor has no strategy for ``aten.flip`` (the backward
+    of ``cumsum``): the dry run flips each local shard, after moving a shard
+    off a flipped dim, and gives the flip's values."""
+    _without_strategy(monkeypatch, torch.ops.aten.flip.default)
+    data = torch.arange(2 * 3 * 5, dtype=torch.float32).reshape(2, 3, 5)
+    x = distribute_tensor(data, one_rank_mesh, [Shard(0), Shard(2)])
+    with pytest.raises(NotImplementedError, match="sharding strategy"):
+        x.flip([2])
+    mode = dryrun._ReshardOnRefusal(("data",))
+    with mode:
+        out = x.flip([-1])
+    assert torch.equal(out.full_tensor(), data.flip([2]))
+    assert out.placements[1] != Shard(2)
+    rec = mode.record()
+    assert rec["local"] == 1 and rec["refused"] == 1 and rec["moved"] == {"model": 1}
+    assert rec["batch_gathered"] == 0

@@ -20,6 +20,8 @@ for name in names:
 missing = sorted(set({required!r}) - set(names))
 assert not missing, missing
 import chip_smoke
+for script in {scripts!r}:
+    chip_smoke.load_script(script)
 from repro_torch.kernels import _build
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -30,6 +32,13 @@ print(len(names))
 """
 
 
+# the twins of the examples and of scripts/hillclimb.py: loaded by path, they
+# import neither JAX nor the JAX package either
+SCRIPTS = [
+    "examples/torch_quickstart.py", "examples/torch_serve_cluster.py",
+    "examples/torch_train_100m.py", "examples/torch_fleet_demo.py",
+    "scripts/torch_hillclimb.py",
+]
 # the modules of each slice of the port; the probe fails if one is missing
 REQUIRED = [
     "repro_torch.core.jrba", "repro_torch.core.online", "repro_torch.fleet.runtime",
@@ -64,7 +73,10 @@ REQUIRED = [
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    code = PROBE.format(src=os.path.join(ROOT, "src"), root=ROOT, required=REQUIRED)
+    scripts = [os.path.join(ROOT, s) for s in SCRIPTS]
+    assert all(os.path.exists(s) for s in scripts)
+    code = PROBE.format(src=os.path.join(ROOT, "src"), root=ROOT, required=REQUIRED,
+                        scripts=scripts)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=ROOT,
@@ -72,6 +84,18 @@ def test_port_imports_neither_jax_nor_the_reference():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.strip().splitlines()[-1]) >= 16
+
+
+def test_h100_node_class_is_exported_and_v5e_unchanged():
+    """The port's ``core`` exports an H100 class with the peaks chip_smoke
+    bounds its kernels by; the TPU class the reference's scenarios read is as
+    it was."""
+    import repro_torch.core as core
+    from repro_torch.core import H100, TPU_V5E, NodeClass
+
+    assert "H100" in core.profiler.__all__ and core.H100 is H100
+    assert H100 == NodeClass("h100-sxm", peak_flops=989e12, hbm_bw=3.35e12, mem=80e9)
+    assert TPU_V5E == NodeClass("tpu-v5e", peak_flops=197e12, hbm_bw=819e9, mem=16e9)
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -20,7 +20,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import rwkv6 as rw
 from repro_torch.kernels import ssd
-from repro_torch.kernels.ref import same_bits
+from repro_torch.kernels.ref import same_bits, ssd_sequential
 
 # the plain gradients against the twins' (f32): rtol, and atol as a share
 # of the gradient's largest entry
@@ -56,15 +56,22 @@ def _torch_grads(fn, arrays, cot):
     return torch.autograd.grad(out, ts, torch.from_numpy(cot))
 
 
-def _close(got, want, names):
-    """Within GRAD_TOL, NaN where the twin's gradient is NaN: the SSD twin's
-    masked ``exp`` overflows to inf above the diagonal of a chunk whose
-    decays sum past f32's range, and its select passes 0 * inf = NaN back
-    (``jnp.where`` and ``torch.where`` alike)."""
+def _close(got, want, names, nan_fixed: bool = False):
+    """Within GRAD_TOL where the twin's gradient is finite. Where it is NaN:
+    the SSD twin's masked ``exp`` overflows to inf above the diagonal of a
+    chunk whose decays sum past f32's range, and its select passes
+    ``0 * inf = NaN`` back (``jnp.where``); the port masks the exponent
+    first (``ssd.intra_decay``), so with ``nan_fixed`` its gradient must be
+    finite there, and otherwise NaN as the twin's."""
     rtol, share = GRAD_TOL
     for g, w, name in zip(got, want, names):
-        np.testing.assert_allclose(g.numpy(), w, rtol=rtol, err_msg=name, equal_nan=True,
-                                   atol=share * float(np.abs(w[np.isfinite(w)]).max(initial=0.0)))
+        g = g.numpy()
+        finite = np.isfinite(w)
+        if nan_fixed:
+            assert np.isfinite(g).all(), name
+            g = np.where(finite, g, w)
+        np.testing.assert_allclose(g, w, rtol=rtol, err_msg=name, equal_nan=True,
+                                   atol=share * float(np.abs(w[finite]).max(initial=0.0)))
 
 
 @pytest.mark.parametrize("case", ATTN_CASES)
@@ -86,7 +93,63 @@ def test_ssd_gradient_matches_jax_twin(case):
     cot = _arrays([(B, S, H, P)], 2, ["n"])[0]
     want = _jax_grads(lambda *a: jssm.ssd_chunked(*a, chunk=chunk)[0], arrays, cot)
     got = _torch_grads(lambda *a: ssd.ssd_chunked(*a, chunk=chunk)[0], arrays, cot)
-    _close(got, want, ["x", "dt", "A", "B", "C"])
+    _close(got, want, ["x", "dt", "A", "B", "C"], nan_fixed=True)
+
+
+# chunks of 16 whose decays sum past f32's exp range: dt 1.5-2.5 and A
+# -8..-12 give log-decays of -12..-30 a step, -190..-480 over a chunk
+SSD_CLIFF_CASES = [(1, 32, 2, 8, 4, 16), (2, 64, 3, 16, 8, 16)]
+
+
+def _cliff_arrays(case, seed):
+    B, S, H, P, N, _ = case
+    rng = np.random.default_rng(seed)
+    x, Bm, Cm = (rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, S, H, P), (B, S, N), (B, S, N)))
+    dt = rng.uniform(1.5, 2.5, (B, S, H)).astype(np.float32)
+    A = -rng.uniform(8.0, 12.0, (H,)).astype(np.float32)
+    return [x, dt, A, Bm, Cm]
+
+
+@pytest.mark.parametrize("case", SSD_CLIFF_CASES)
+def test_ssd_gradient_is_finite_past_the_cliff(case, monkeypatch):
+    """Where a chunk's decays sum past 88 the JAX twin's gradient is NaN
+    (dt and A); the port's is finite everywhere and equals the twin's
+    wherever that is finite (GRAD_TOL), and its forward keeps the bits of
+    the unmasked ``exp`` it replaced.
+
+    Where the twin has no gradient the port's is held to f64 autograd
+    through the sequential recurrence (``ref.ssd_sequential``, which takes
+    ``exp`` of non-positive numbers only), within GRAD_TOL: the f32 run's x,
+    dt, B and C gradients, and every gradient of the same masked chunked
+    code run in f64. Not the f32 run's A: past the cliff the state lives for
+    about one step and A's gradient is about a millionth of the
+    per-position terms it sums (the chunk diagonal's +/- terms in the
+    cumsum's backward), so f32 rounding decides its digits."""
+    chunk = case[-1]
+    arrays = _cliff_arrays(case, sum(case))
+    cot = _arrays([case[:4]], 9, ["n"])[0]
+    la = arrays[1] * arrays[2]
+    assert -la.reshape(case[0], -1, chunk, case[2]).sum(axis=2).max() > 88.0
+    want = _jax_grads(lambda *a: jssm.ssd_chunked(*a, chunk=chunk)[0], arrays, cot)
+    assert np.isnan(want[1]).any() and np.isnan(want[2]).any()
+    got = _torch_grads(lambda *a: ssd.ssd_chunked(*a, chunk=chunk)[0], arrays, cot)
+    _close(got, want, ["x", "dt", "A", "B", "C"], nan_fixed=True)
+    seq = ssd_sequential.__wrapped__  # the recurrence without its no_grad
+    arrays64, cot64 = [a.astype(np.float64) for a in arrays], cot.astype(np.float64)
+    exact = [g.numpy() for g in _torch_grads(lambda *a: seq(*a, acc=torch.float64)[0],
+                                             arrays64, cot64)]
+    _close(got[:2] + got[3:], exact[:2] + exact[3:], ["x", "dt", "B", "C"])
+    got64 = _torch_grads(lambda *a: ssd.ssd_chunked(*a, chunk=chunk)[0], arrays64, cot64)
+    assert all(g.dtype == torch.float64 for g in got64)
+    _close(got64, exact, ["x", "dt", "A", "B", "C"])
+    ts = [torch.from_numpy(a) for a in arrays]
+    y, h = ssd.ssd_chunked(*ts, chunk=chunk)
+    monkeypatch.setattr(ssd, "intra_decay",
+                        lambda diff, mask: torch.where(mask, torch.exp(diff), 0.0))
+    y_old, h_old = ssd.ssd_chunked(*ts, chunk=chunk)
+    assert same_bits(y, y_old) and same_bits(h, h_old)
+    assert bool(torch.isfinite(y).all())
 
 
 @pytest.mark.parametrize("case", RWKV_CASES)

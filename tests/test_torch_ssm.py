@@ -488,3 +488,36 @@ def test_mixer_apply_and_decode_match_jax(arch, mixer, dtype):
     for name, leaf in tcache.items():
         assert leaf is state[name]  # updated in place
         _close(leaf, jcache[name], dtype, **_mixer_tol(dtype, jcache[name]))
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_pad_front_on_a_dtensor_is_f_pad(tmp_path, n):
+    """The mixers' zero padding before the sequence (the causal conv's
+    ``d_conv - 1`` rows, RWKV-6's token shift's one) is a concatenation with
+    a zero block: its values and gradient equal ``F.pad``'s bit for bit, on a
+    plain tensor and on a DTensor (a one-rank ``gloo`` group, the sequence
+    sharded or replicated)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal((2, 8, 6))).to(torch.bfloat16)
+    g = torch.from_numpy(np.random.default_rng(n + 1).standard_normal((2, 8 + n, 6)))
+    g = g.to(torch.bfloat16)
+    want = torch.nn.functional.pad(x, (0, 0, n, 0))
+    xg = x.clone().requires_grad_(True)
+    got = tssm._pad_front(xg, n)
+    assert tref.same_bits(got.detach(), want)
+    got.backward(g)
+    assert tref.same_bits(xg.grad, g[:, n:])
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_debug_mesh((1, 1), device_type="cpu")
+        for placements in ([Shard(0), Shard(1)], [Replicate(), Replicate()]):
+            got = tssm._pad_front(distribute_tensor(x, mesh, placements), n)
+            assert isinstance(got, DTensor)
+            assert tref.same_bits(got.full_tensor(), want)
+    finally:
+        dist.destroy_process_group()
