@@ -85,28 +85,44 @@ Phases, in the order they run, each failing hard:
    but the model's allowance of positions (a MoE model at its drop-free
    capacity for this check, as the JAX package's tests hold it: the forward
    dispatches the prompt as one group, decode each token). A profiler
-   window over 8 ticks shows the device's busy share.
+   window over 4 ticks shows the device's busy share.
 7. Training: each kernel's ``autograd.Function`` (the kernel forward, the
    plain version's gradient: the JAX package has no backward kernel) against
    the plain version under autograd, bf16 and f32: flash attention at
-   ``tests/test_kernels.py``'s shapes, MLA's (96, 64) and (192, 128) and
-   internlm2-1.8b's training batch (B=4, S=2048, 16/8 heads, D=128), each
-   causal at its window and not causal with scale 0.1; the SSD and RWKV-6
-   scans at the kernel tests' cases and zamba2-7b's and rwkv6-3b's heads at
-   S=4096, and once past the SSD's cliff (decays summing far past f32's exp
-   range in a chunk), where every gradient must be finite. The Function's
-   output must equal the kernel's and every input
-   gradient the plain version's, bit for bit, for a seeded output gradient;
-   each gradient's gap to the f32 plain gradient is read. Then
-   ``repro_torch.launch.train.main`` trains internlm2-1.8b (1,889,110,016
-   parameters, bf16, f32 AdamW moments, remat) at full width and depth for
-   8 steps at B=4, S=2048 on the synthetic pipeline, lr 3e-3: every loss
-   finite, the last below the first; ms a step, tokens/s and peak memory are
-   printed. One step through the kernels and one from a copy of the same
-   state through the plain versions: their loss and gradient-norm gaps held
-   to ``TRAIN_LIMITS``, the largest updated-parameter gap read, and no
-   gradient all zeros where the plain path's is not; a further kernel step
-   is profiled.
+   ``tests/test_kernels.py``'s shapes, MLA's (96, 64) and (192, 128) and the
+   training runs' shapes at B=4, S=2048 (internlm2-1.8b's 16/8 heads of
+   D=128, gemma3-1b's 4/1 of D=256 at window 512 and global, zamba2-7b's
+   32/32 of D=112), each causal at its window and not causal with scale 0.1;
+   the SSD and RWKV-6 scans at the kernel tests' cases and zamba2-7b's and
+   rwkv6-3b's heads at S=4096 and at B=4, S=2048, and once past the SSD's
+   cliff (decays summing far past f32's exp range in a chunk), where every
+   gradient must be finite. The Function's output must equal the kernel's
+   and every input gradient the plain version's, bit for bit, for a seeded
+   output gradient; each gradient's gap to the f32 plain gradient is read.
+   Then the training runs (``TRAIN_RUNS``), one model on the card at a
+   time, each at full width, bf16 with f32 AdamW moments and remat, at
+   B=4, S=2048 on the synthetic pipeline (seed 0), lr 3e-3:
+   internlm2-1.8b (1,889,110,016 parameters, 48 bf16 flash launches a
+   step), rwkv6-3b (2,863,516,160; 64 bf16 RWKV-6), gemma3-1b (999,812,736;
+   52 bf16 flash at D=256) and zamba2-7b cut to 27 of its 81 layers
+   (2,690,678,832; 46 bf16 SSD and 8 bf16 flash at D=112; its full state does
+   not fit one card). ``repro_torch.launch.train.main`` trains internlm2-1.8b
+   for 8 steps (every loss finite, the last below the first), rwkv6-3b for 2
+   and gemma3-1b for 3 (every loss finite); ms a step, tokens/s and peak
+   memory are printed. Then, for each model, one step through the plain versions on
+   a copy of the parameters and one through the kernels from the same state,
+   its AdamW moments zeroed again (step 0's), beside the witness of bf16
+   rounding, the f32 plain path (a forward; for rwkv6-3b a gradient): held
+   to the run's limits, the loss and gradient-norm gaps, the spread of the
+   per-position loss gaps over the witness's (not internlm2-1.8b's) and,
+   for rwkv6-3b in place of the gradient norm, the kernel path's gradient
+   distance from the f32 gradient over the plain path's; no gradient all
+   zeros where the plain path's is not; the largest gradient and
+   updated-parameter gaps read. A further kernel step is timed (ms,
+   tokens/s, peak memory) where no entry point ran, and one more profiled
+   (the device's busy share, its leading kernels). Before the first
+   profiled window of the run, one of 64 known launches holds the
+   profiler's raw events against its public event tree.
 8. The examples' twins: ``examples/torch_quickstart.py`` in full through
    the JRBA kernel and through its plain version on the card
    (``REPRO_TORCH_JRBA_SOLVER=sparse``), Fig. 2's figures and every
@@ -178,9 +194,11 @@ SSD: zamba2-7b's, 68; bf16 RWKV-6: rwkv6-3b's, 32); the S=4096 prefills and
 serving loops (whose decode is plain PyTorch) not at all. The f32 flash
 kernel's path is gemma3-1b's f32 prefill at S=4096 (26 launches), the f32
 SSD kernel's zamba2-7b's at its f32 depth (23), the f32 RWKV-6 kernel's
-rwkv6-3b's (32). A full-width internlm2-1.8b train step launches the bf16
-flash kernel exactly 48 times (24 layers, forward and remat's recompute; 384
-in the 8-step entry-point run), its plain-path step none.
+rwkv6-3b's (32). A full-width train step launches each kernel exactly twice
+a layer that reaches it (the forward and remat's recompute): internlm2-1.8b
+48 bf16 flash (384 in its 8-step entry-point run), rwkv6-3b 64 bf16 RWKV-6
+(128 in 2 steps), gemma3-1b 52 bf16 flash (156 in 3), zamba2-7b at 27 layers
+46 bf16 SSD and 8 bf16 flash; each plain-path step none.
 ``flash_attention_hsd.launches``, ``ssd_scan_hsd.launches`` and
 ``rwkv6_scan_hsd.launches`` each count their two kernels, and each must
 equal their sum on every path. A bf16 RWKV-6 call counts one launch however
@@ -242,6 +260,8 @@ from repro_torch.models.transformer import pick_chunk  # noqa: E402
 from repro_torch.optim import AdamWConfig, apply_updates  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.train import TrainConfig, init_train_state  # noqa: E402
+from repro_torch.train import train_step as train_step_mod  # noqa: E402
+from repro_torch.train.losses import total_loss  # noqa: E402
 from repro_torch.train.train_step import loss_and_grads  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map, tree_paths  # noqa: E402
 
@@ -543,9 +563,11 @@ FLASH_SHAPES = [
     (1, 4096, 4, 1, 256, 0),
     (1, 4096, 16, 8, 128, 0),
 ]
-# internlm2-1.8b's training batch: the shape of each of a full-width train
-# step's 48 launches (training phase), bf16
-TRAIN_FLASH_SHAPE = (4, 2048, 16, 8, 128, 0)
+# the training runs' flash shapes at B=4, S=2048 (training phase), bf16:
+# internlm2-1.8b's (each of its step's 48 launches), gemma3-1b's windowed and
+# global layers, zamba2-7b's shared attention
+TRAIN_FLASH_SHAPES = [(4, 2048, 16, 8, 128, 0), (4, 2048, 4, 1, 256, 512),
+                      (4, 2048, 4, 1, 256, 0), (4, 2048, 32, 32, 112, 0)]
 # the keywords the model never passes: (shape, causal, scale); small shapes,
 # then internlm2-1.8b's at S=4096, bf16 and f32 each
 FLASH_KEYWORD_CASES = [
@@ -665,7 +687,7 @@ def flash_phase(device) -> list[dict]:
     for shape in FLASH_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             out.append(flash_case(shape, dtype, device, reps=10))
-    out.append(flash_case(TRAIN_FLASH_SHAPE, torch.bfloat16, device, reps=10))
+    out += [flash_case(s, torch.bfloat16, device, reps=10) for s in TRAIN_FLASH_SHAPES]
     short, full = ZAMBA_FLASH_SHAPES
     out.append(flash_case(short, torch.float32, device, reps=5))
     out += [flash_case(s, torch.bfloat16, device, reps=3) for s in (short, full)]
@@ -694,6 +716,9 @@ SSD_CASES = [(2, 128, 2, 16, 8, 32), (1, 256, 4, 64, 64, 64), (2, 64, 1, 32, 16,
 RWKV_CASES = [(2, 128, 2, 16, 16), (1, 256, 4, 64, 16), (2, 64, 1, 32, 8), (1, 512, 2, 64, 16)]
 SSD_MODEL = [(1, 32768, 112, 64, 64, 64), (1, 4096, 112, 64, 64, 64)]
 RWKV_MODEL = [(1, 32768, 40, 64, 16), (1, 4096, 40, 64, 16)]
+# the same heads at the training runs' batch, B=4, S=2048 (training phase), bf16
+SSD_TRAIN = (4, 2048, 112, 64, 64, 64)
+RWKV_TRAIN = (4, 2048, 40, 64, 16)
 # tests/test_kernels.py's tolerances (rtol, atol); the atol a share of each
 # output row's root mean square
 SCAN_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (2e-4, 5e-4)}
@@ -799,10 +824,11 @@ def scan_phase(device) -> dict:
     the sequential oracle); returns the timings by scan family, the model's
     S=32768 shape first in each dtype (each kernel's record)."""
     out = {}
-    for name, cases, model in (("ssd_scan", SSD_CASES, SSD_MODEL),
-                               ("rwkv6_scan", RWKV_CASES, RWKV_MODEL)):
+    for name, cases, model, train in (("ssd_scan", SSD_CASES, SSD_MODEL, SSD_TRAIN),
+                                      ("rwkv6_scan", RWKV_CASES, RWKV_MODEL, RWKV_TRAIN)):
         rows = [scan_case(name, s, dt, device, 5, False)
                 for dt in (torch.bfloat16, torch.float32) for s in model]
+        rows.append(scan_case(name, train, torch.bfloat16, device, 5, False))
         rows += [scan_case(name, s, dt, device, 10, True)
                  for s in cases for dt in (torch.bfloat16, torch.float32)]
         out[name] = rows
@@ -977,27 +1003,47 @@ def plain_kernels():
         model_attention.flash_attention, ops.ssd_scan, ops.rwkv6_scan = saved
 
 
-def profile_window(label: str, card: str, fn, *args, grids: dict | None = None) -> dict:
+def profile_window(label: str, card: str, fn, *args, grids: dict | None = None,
+                   expect_kernels: int | None = None) -> dict:
     """Where one window's time goes: ``torch.profiler`` kernel intervals on
     the card, their union over the host's wall clock (the device's busy
-    share; the profiler's own host cost inflates the wall clock of
-    host-bound windows), and the kernels that took the most device time.
-    ``grids`` maps a name to substrings of kernel names: the result's
-    ``device_grids`` counts the device launches whose name holds one."""
+    share), and the kernels that took the most device time. It records the
+    device's activity only and reads the trace's raw events
+    (``prof.profiler.kineto_results.events()``, which is not public API;
+    read on PyTorch 2.11 and 2.13), not the profiler's per-op event tree:
+    recording the host's ops too doubled a window's cost and inflated its
+    wall clock (PERF.md section 4). ``grids`` maps a name to substrings of
+    kernel names: the result's ``device_grids`` counts the device launches
+    whose name holds one. With ``expect_kernels`` the raw events must hold
+    exactly that many device kernels, as many as the public event tree
+    (``prof.events()``), with the same summed time: a PyTorch that drops or
+    doubles raw events fails there (``profiler_check``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn(*args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events()
-        if e.device_type == DeviceType.CUDA
+    spans = sorted(  # microseconds, as the profiler's event tree gives them
+        (e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3, e.name())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == DeviceType.CUDA
+        and not getattr(e, "is_hidden_event", lambda: False)()
     )
+    if expect_kernels is not None:
+        tree = sorted((e.time_range.start, e.time_range.end - e.time_range.start)
+                      for e in prof.events() if e.device_type == DeviceType.CUDA)
+        assert len(spans) == len(tree) == expect_kernels, (
+            f"{label}: {len(spans)} raw device kernels, {len(tree)} in the event tree, "
+            f"{expect_kernels} launched")
+        # the raw events' times are whole microseconds (PyTorch 2.11), the
+        # tree's finer: each kernel's two readings within 1 us
+        worst = max(abs((stop - start) - us) for (start, stop, _), (_, us) in zip(spans, tree))
+        log(f"[profile] {label}: raw and tree durations {worst:.3f} us apart at most")
+        assert worst <= 1.0, (label, worst)
     busy_us, end = 0.0, float("-inf")
     by_name: dict[str, float] = {}
     for start, stop, name in spans:
@@ -1018,6 +1064,22 @@ def profile_window(label: str, card: str, fn, *args, grids: dict | None = None) 
                                for key, subs in grids.items()}
     log(f"[profile] {label}: {json.dumps(out)} [{card}]")
     return out
+
+
+# the profiler check's window: this many launches of one elementwise kernel
+PROFILER_CHECK_KERNELS = 64
+
+
+def profiler_check(device, card) -> None:
+    """profile_window's raw device events against the profiler's event tree
+    on a window of known launches, before any window is read."""
+    x = torch.zeros(1 << 20, device=device)
+
+    def adds():
+        for _ in range(PROFILER_CHECK_KERNELS):
+            x.add_(1.0)
+
+    profile_window("profiler check", card, adds, expect_kernels=PROFILER_CHECK_KERNELS)
 
 
 def gap_share(label: str, got, want) -> float:
@@ -1336,13 +1398,19 @@ GRAD_FLASH_SHAPES = [
     (1, 256, 4, 4, 96, 64, 0), (1, 256, 4, 4, 192, 128, 0),  # minicpm3-4b's, deepseek-v2's MLA
     (4, 2048, 16, 8, 128, 128, 0),  # internlm2-1.8b's training batch
 ]
-# the scans at tests/test_kernels.py's cases and the models' heads at S=4096
-GRAD_SSD_SHAPES = [*SSD_CASES[:4], SSD_MODEL[1]]
+# the other training runs' attention at B=4, S=2048, causal at the window the
+# model passes only: gemma3-1b's windowed and global layers, zamba2-7b's
+# shared attention
+GRAD_FLASH_TRAIN = [(4, 2048, 4, 1, 256, 256, 512), (4, 2048, 4, 1, 256, 256, 0),
+                    (4, 2048, 32, 32, 112, 112, 0)]
+# the scans at tests/test_kernels.py's cases, the models' heads at S=4096 and
+# at the training batch (zamba2-7b's, rwkv6-3b's)
+GRAD_SSD_SHAPES = [*SSD_CASES[:4], SSD_MODEL[1], SSD_TRAIN]
 # an SSD case past the cliff: dt 1.5-2.5 and A -8..-12 give log-decays of
 # -12..-30 a step, a chunk of 64 sums them far past f32's exp range (88),
 # where an unmasked exp's gradient is NaN; the plain gradient must be finite
 GRAD_SSD_CLIFF = [(2, 256, 4, 64, 64, 64)]
-GRAD_RWKV_SHAPES = [*RWKV_CASES, RWKV_MODEL[1]]
+GRAD_RWKV_SHAPES = [*RWKV_CASES, RWKV_MODEL[1], RWKV_TRAIN]
 TRAIN_ARCH = "internlm2-1.8b"  # the reference trainer's family, at full width and depth
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 TRAIN_STEPS = 8
@@ -1358,6 +1426,60 @@ TRAIN_LAUNCHES = {"flash_attention_wgmma": 48}
 # relative gaps of the loss and the gradient norm, 3-4x the gaps read on the
 # H100 (1.37e-4 and 3.25e-4; PERF.md section 2)
 TRAIN_LIMITS = {"loss": 5e-4, "grad_norm": 1e-3}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainRun:
+    """One model's training run at TRAIN_BATCH x TRAIN_SEQ, full width.
+    ``launches``: a step's kernel launches, each kernel layer once in the
+    forward and once in remat's recompute (the backward runs the plain
+    versions); ``limits``: what the kernel-vs-plain step holds, 2-4x what
+    was read on the H100 (``kernel_vs_plain_step``: ``loss`` and
+    ``grad_norm``, relative gaps; ``spread``, the per-position loss gaps'
+    spread over the witness's; ``grad_f32``, the kernel path's gradient
+    distance from the f32 plain gradient over the plain path's);
+    ``steps``: the entry point's steps (0: none); ``loss_falls``: hold its
+    last loss below its first; ``repeats``: the pattern repeats kept where
+    the depth is cut."""
+    launches: dict
+    limits: dict
+    steps: int
+    loss_falls: bool = False
+    repeats: int | None = None
+
+
+# phase 7's runs, in order. rwkv6-3b: 32 RWKV-6 layers; gemma3-1b: 26 flash
+# layers at D=256 (22 windowed at 512, 4 global); zamba2-7b: its full state
+# (91 GB) does not fit one card, so 4 of its 13 groups (5 Mamba-2 blocks and
+# the shared attention at D=112 each) and its 3 last Mamba-2 blocks, 27 of 81
+# layers (the f32 checks' cut, F32_REPEATS); the JAX driver has no depth
+# flag, so the cut model has no entry-point run. Limits, against what the
+# H100 read from seed 0 (seeds 1 and 2: scripts/torch_train_probe.py;
+# PERF.md section 6): gemma3-1b's and zamba2-7b's loss and gradient-norm
+# gaps about 3x theirs (1.72e-6 and 4.67e-6; 4.87e-5 and 3.85e-4); spreads
+# 0.298 and 0.885 (0.299, 0.883 from seed 1). rwkv6-3b's forward is chaotic
+# at the init: a one-step bf16 difference in 0.4% of the scan's outputs (its
+# kernel is as close to the f32 plain scan as the bf16 plain scan is) moves
+# each position's loss by 2.7 (the loss is 195), as the whole bf16-vs-f32
+# difference does (2.5), so a loss gap is one draw of noise whose standard
+# error is 1.39e-4 of the loss: the kernel path read 3.61e-4 (2.6 standard
+# errors), 6.1e-5 and 8.2e-5 from seeds 1 and 2, the witness 1.5e-5,
+# 1.55e-4 and 1.24e-4; the limit is about 2x the gap, 5.4 standard errors.
+# Its spread read 1.092 (1.119, 1.098). Its bf16 gradient at the init is
+# decided by a few first-position rows whose group-norm variance is near
+# norm_eps (the bf16 plain path's gradient norm 6.9x the f32 one's, its
+# gap to the kernel path's 0.776), so no gradient-norm gap is held there;
+# the kernel path's gradient is held no farther from the f32 plain gradient
+# than 2x the plain path's (0.254; 1.050 and 1.171 from seeds 1 and 2)
+TRAIN_RUNS = {
+    TRAIN_ARCH: TrainRun(TRAIN_LAUNCHES, TRAIN_LIMITS, TRAIN_STEPS, loss_falls=True),
+    "rwkv6-3b": TrainRun({"rwkv6_scan_mma": 64},
+                         {"loss": 7.5e-4, "spread": 2.25, "grad_f32": 2.0}, 2),
+    "gemma3-1b": TrainRun({"flash_attention_wgmma": 52},
+                          {"loss": 5e-6, "grad_norm": 1.5e-5, "spread": 1.0}, 3),
+    "zamba2-7b": TrainRun({"ssd_scan_mma": 46, "flash_attention_wgmma": 8},
+                          {"loss": 1.5e-4, "grad_norm": 1.2e-3, "spread": 2.0}, 0, repeats=4),
+}
 
 
 def grad_row_share(got: torch.Tensor, want: torch.Tensor) -> tuple[float, int]:
@@ -1380,6 +1502,7 @@ def grad_case(label: str, function, hsd, plain, args, kw: dict, seed: int, card:
     in either (held at 0 past the SSD's cliff, GRAD_SSD_CLIFF: the SSD plain
     version masks its exponent above a chunk's diagonal, where the JAX twin's
     overflows and its gradient is NaN)."""
+    t0 = time.perf_counter()
     ins = [a.detach().clone().requires_grad_() for a in args]
     out = function.apply(*ins, kw)
     with torch.no_grad():
@@ -1389,14 +1512,17 @@ def grad_case(label: str, function, hsd, plain, args, kw: dict, seed: int, card:
     got = torch.autograd.grad(out, ins, cot)
     ref_in = [a.detach().clone().requires_grad_() for a in args]
     want = torch.autograd.grad(plain(*ref_in, **kw), ref_in, cot)
-    f32_in = [a.detach().float().requires_grad_() for a in args]
-    f32 = torch.autograd.grad(plain(*f32_in, **kw), f32_in, cot.float())
+    if all(a.dtype == torch.float32 for a in args):  # the plain version is the f32 one
+        f32 = want
+    else:
+        f32_in = [a.detach().float().requires_grad_() for a in args]
+        f32 = torch.autograd.grad(plain(*f32_in, **kw), f32_in, cot.float())
     torch.cuda.synchronize()
     shares = [grad_row_share(g, w) for g, w in zip(got, f32)]
     rec = {"case": label, "output_equal": same_bits(out.detach(), kernel_out),
            "grads_equal": [same_bits(g, w) for g, w in zip(got, want)],
            "f32_row_share": max(s for s, _ in shares),
-           "non_finite": sum(n for _, n in shares)}
+           "non_finite": sum(n for _, n in shares), "s": time.perf_counter() - t0}
     log(f"[grad] {json.dumps(rec)} [{card}]")
     assert rec["output_equal"], f"{label}: the Function's output is not the kernel's"
     assert all(rec["grads_equal"]), f"{label}: gradients differ from the plain version's"
@@ -1408,12 +1534,15 @@ def grad_checks(device, card) -> int:
     n = 0
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
-        for B, S, H, KH, D, Dv, window in GRAD_FLASH_SHAPES:
+        for shape, model_only in [(s, False) for s in GRAD_FLASH_SHAPES] + [
+                (s, True) for s in GRAD_FLASH_TRAIN]:
+            B, S, H, KH, D, Dv, window = shape
             gen = torch.Generator(device=device).manual_seed(SEED + S + H + D)
             q = torch.randn((B, H, S, D), generator=gen, device=device).to(dtype)
             k = torch.randn((B, KH, S, D), generator=gen, device=device).to(dtype)
             v = torch.randn((B, KH, S, Dv), generator=gen, device=device).to(dtype)
-            for causal, win, scale in ((True, window, None), (False, 0, 0.1)):
+            variants = [(True, window, None)] + ([] if model_only else [(False, 0, 0.1)])
+            for causal, win, scale in variants:
                 kw = dict(causal=causal, window=win, scale=scale, chunk=pick_chunk(S))
                 grad_case(f"flash {(B, S, H, KH, D, Dv)} causal={causal} window={win} "
                           f"scale={scale} {name}", fa.FlashAttention, fa.flash_attention_hsd,
@@ -1446,6 +1575,13 @@ def grad_checks(device, card) -> int:
 CARD_STATE_BYTES: dict[str, int] = {}
 
 
+def train_config(arch: str):
+    """The run's config: the model's, at TRAIN_RUNS' depth."""
+    cfg = get_config(arch)
+    repeats = TRAIN_RUNS[arch].repeats
+    return cfg if repeats is None else dataclasses.replace(cfg, n_pattern_repeats=repeats)
+
+
 def train_batch(cfg, device) -> dict:
     """Step 0 of the synthetic data pipeline (seed 0) at the training shape."""
     dcfg = DataConfig(vocab=cfg.vocab, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED)
@@ -1459,30 +1595,32 @@ def train_opt(cfg) -> AdamWConfig:
                        factored_second_moment=cfg.optimizer_factored)
 
 
-def entry_point_run(device, card) -> tuple[dict, dict]:
-    """``launch/train.py`` at full width for TRAIN_STEPS steps, exactly
-    TRAIN_LAUNCHES bf16 flash launches a step: finite losses, the last below
-    the first. Returns its record and its launches."""
-    argv = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-            "--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--log-every", "1",
+def entry_point_run(arch: str, device, card) -> tuple[dict, dict]:
+    """``launch/train.py`` at full width for the run's steps, exactly its
+    launches a step: finite losses (with ``loss_falls``, the last below the
+    first). Returns its record and its launches."""
+    run = TRAIN_RUNS[arch]
+    argv = ["--arch", arch, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(run.steps), "--lr", str(TRAIN_LR), "--log-every", "1",
             "--seed", str(SEED)]
-    expect = {k: n * TRAIN_STEPS for k, n in TRAIN_LAUNCHES.items()}
+    expect = {k: n * run.steps for k, n in run.launches.items()}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    out, counts = counted_all(f"{TRAIN_ARCH} launch.train.main, {TRAIN_STEPS} steps (main path)",
+    out, counts = counted_all(f"{arch} launch.train.main, {run.steps} steps (main path)",
                               expect, train_driver.main, argv)
     seconds = time.perf_counter() - t0
     losses = out["losses"]
-    assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
-    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+    assert len(losses) == run.steps and all(np.isfinite(losses)), losses
+    if run.loss_falls:
+        assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
     steady = sorted(out["step_seconds"][1:])[len(out["step_seconds"][1:]) // 2]
-    rec = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+    rec = {"arch": arch, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": run.steps,
            "lr": TRAIN_LR, "losses": losses, "call_s": seconds,
            "first_step_ms": out["step_seconds"][0] * 1e3, "ms_per_step": steady * 1e3,
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady,
            "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
-           "launches": counts["flash_attention_wgmma"]}
+           "launches": {k: counts[k] for k in run.launches}}
     log(f"[train] {json.dumps(rec)} [{card}]")
     return rec, counts
 
@@ -1495,72 +1633,210 @@ def train_step_once(state, cfg, opt, batch):
     return grads, {k: float(v) for k, v in {**metrics, **opt_metrics}.items()}
 
 
-def kernel_vs_plain_step(device, card) -> dict:
-    """One full-width step through the kernels and one, from a copy of the
-    same state, through their plain versions: exactly TRAIN_LAUNCHES bf16
-    flash launches on the first, none on the second; the loss and
-    gradient-norm gaps held to TRAIN_LIMITS, the largest updated-parameter
-    gap read; no gradient all zeros where the plain path's is not. Then one
-    further kernel step profiled. Returns the launches by path."""
-    cfg = get_config(TRAIN_ARCH)
+@contextlib.contextmanager
+def position_losses(store: list):
+    """Each loss the block computes through ``loss_and_grads`` also kept in
+    ``store`` per position: the CE (B, S) in f64, from the logits the loss
+    takes (no second forward)."""
+    saved = train_step_mod.total_loss
+
+    def loss(logits, labels, aux, **kw):
+        with torch.no_grad():
+            store.append(position_ce(logits, labels))
+        return saved(logits, labels, aux, **kw)
+
+    train_step_mod.total_loss = loss
+    try:
+        yield
+    finally:
+        train_step_mod.total_loss = saved
+
+
+def position_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The CE at each position (B, S), f64, NaN where the label is ignored;
+    no host sync, so a step that keeps it runs as it would without."""
+    lf = logits.detach().float()
+    ce = torch.logsumexp(lf, dim=-1) - lf.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    return torch.where(labels >= 0, ce.double(), float("nan"))
+
+
+def labelled(t: torch.Tensor) -> torch.Tensor:
+    """The entries of a per-position tensor that are not NaN."""
+    return t[~t.isnan()]
+
+
+def f32_plain_witness(params, cfg, batch, with_grads: bool) -> tuple[float, torch.Tensor, dict]:
+    """The f32 plain path (weights upcast): its loss and its CE by position,
+    the witness of what bf16 rounding alone moves, and with ``with_grads``
+    its gradient (leaf path -> f32 gradient; else an empty dict)."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    if not with_grads:
+        with torch.no_grad(), plain_kernels():
+            p32 = tree_map(lambda t: t.detach().float(), params)
+            logits, aux = forward(p32, cfg32, batch["tokens"])
+            loss = float(total_loss(logits, batch["labels"], aux)[0])
+            ce = position_ce(logits, batch["labels"])
+        del p32, logits
+        torch.cuda.empty_cache()
+        return loss, ce, {}
+    store: list = []
+    p32 = tree_map(lambda t: t.detach().float().requires_grad_(), params)
+    with plain_kernels(), position_losses(store):
+        (grads, metrics), _ = counted_all(f"{cfg.name} f32 plain gradient", {},
+                                          loss_and_grads, p32, cfg32, TrainConfig(), batch)
+    del p32
+    torch.cuda.empty_cache()
+    return float(metrics["loss"]), store[0], dict(tree_paths(grads))
+
+
+def spread(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> float:
+    """The standard deviation of the per-position gaps ``a - b`` over that
+    of ``b - c``."""
+    return float(labelled(a - b).std() / labelled(b - c).std())
+
+
+def f32_distance(grads: dict, g32: dict) -> float:
+    """``|grads - g32| / |g32|`` over all leaves, summed in f64 leaf by leaf."""
+    num = sum(float((grads[k].double() - g).square().sum()) for k, g in g32.items())
+    den = sum(float(g.double().square().sum()) for g in g32.values())
+    return (num / den) ** 0.5
+
+
+def kernel_vs_plain_step(arch: str, device, card) -> dict:
+    """One full-width step through the plain versions and one, from the same
+    state, through the kernels, holding one training state: the plain step
+    runs on a copy of the parameters and the state's zero AdamW moments,
+    which are then zeroed again for the kernel step (step 0's moments are
+    zero). Exactly the run's launches on the kernel path, none on the plain
+    path. Beside them the witness, the f32 plain path (a forward, or with
+    ``grad_f32`` in the run's limits a gradient): the bf16 plain loss's gap
+    to its loss and the standard error of the per-position gaps' mean. What
+    is held to the run's limits: the relative gaps of the loss and the
+    gradient norm; ``spread``, the per-position loss gaps between the paths
+    over those of the witness (standard deviations); ``grad_f32``, the
+    kernel path's gradient distance from the f32 gradient over the plain
+    path's. No gradient all zeros where the plain path's is not; the largest
+    gradient and updated-parameter gaps read, leaf by leaf. Then a further
+    kernel step is timed (ms, tokens/s, peak memory) where no entry point
+    ran, and one more profiled. Returns the launches by path."""
+    clock = [time.perf_counter()]
+
+    def lap() -> float:
+        clock.append(time.perf_counter())
+        return round(clock[-1] - clock[-2], 1)
+
+    run = TRAIN_RUNS[arch]
+    cfg = train_config(arch)
     opt = train_opt(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
     state = init_train_state(cfg, opt, SEED, device=device)
     # the training state the card holds (params, AdamW moments, steps): the
-    # dry run's (1, 1)-mesh static bytes must equal it
-    CARD_STATE_BYTES[TRAIN_ARCH] = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    # dry run's (1, 1)-mesh static bytes must equal internlm2-1.8b's
+    CARD_STATE_BYTES[arch] = sum(t.numel() * t.element_size() for t in tree_leaves(state))
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
     assert n_params == cfg.param_count(), (n_params, cfg.param_count())
     batch = train_batch(cfg, device)
-    plain_state = tree_map(lambda t: t.detach().clone().requires_grad_(t.requires_grad), state)
-    (k_grads, k_metrics), k_counts = counted_all(
-        f"{TRAIN_ARCH} train step (kernel)", TRAIN_LAUNCHES, train_step_once, state, cfg, opt,
-        batch)
-    with plain_kernels():
-        (p_grads, p_metrics), _ = counted_all(f"{TRAIN_ARCH} train step (plain)", {},
-                                              train_step_once, plain_state, cfg, opt, batch)
-    zero = [i for i, (g, w) in enumerate(zip(tree_leaves(k_grads), tree_leaves(p_grads)))
-            if not bool(g.any()) and bool(w.any())]
-    assert not zero, f"{len(zero)} gradients all zero on the kernel path only"
-    grad_gap, grad_at = max(
-        (float((g.float() - w.float()).abs().max()) / float(w.float().abs().max()), path)
-        for (path, g), (_, w) in zip(tree_paths(k_grads), tree_paths(p_grads)))
+    laps = {"init": lap()}
+    witness, ce32, g32 = f32_plain_witness(state["params"], cfg, batch, "grad_f32" in run.limits)
+    laps["witness"] = lap()
+    plain = {"params": tree_map(lambda t: t.detach().clone().requires_grad_(t.requires_grad),
+                                state["params"]), "opt": state["opt"]}
+    ce: list = []
+    with plain_kernels(), position_losses(ce):
+        (p_grads, p_metrics), _ = counted_all(f"{arch} train step (plain)", {},
+                                              train_step_once, plain, cfg, opt, batch)
+    laps["plain_step"] = lap()
+    with torch.no_grad():  # step 0's moments again
+        for key, tree in state["opt"].items():
+            if key != "step":
+                for t in tree_leaves(tree):
+                    t.zero_()
+    with position_losses(ce):
+        (k_grads, k_metrics), k_counts = counted_all(
+            f"{arch} train step (kernel)", run.launches, train_step_once, state, cfg, opt, batch)
+    laps["kernel_step"] = lap()
+    zero, grad_gap, grad_at = 0, 0.0, ""
+    for (path, g), (_, w) in zip(tree_paths(k_grads), tree_paths(p_grads)):
+        if not bool(g.any()) and bool(w.any()):
+            zero += 1
+        gap = float((g.float() - w.float()).abs().max()) / float(w.float().abs().max())
+        if gap > grad_gap:
+            grad_gap, grad_at = gap, path
+    log(f"[train] {arch}: {zero} gradients all zero on the kernel path only")
+    assert not zero, f"{arch}: {zero} gradients all zero on the kernel path only"
     param_gap = max(float((a.detach().float() - b.detach().float()).abs().max()) for a, b in
-                    zip(tree_leaves(state["params"]), tree_leaves(plain_state["params"])))
-    gaps = {k: abs(k_metrics[k] - p_metrics[k]) / abs(p_metrics[k]) for k in TRAIN_LIMITS}
-    rec = {"kernel": {k: k_metrics[k] for k in ("loss", "grad_norm", "clip_scale", "lr")},
-           "plain": {k: p_metrics[k] for k in ("loss", "grad_norm")}, "gaps": gaps,
-           "limits": TRAIN_LIMITS, "largest_grad_gap_share": grad_gap, "at": grad_at,
+                    zip(tree_leaves(state["params"]), tree_leaves(plain["params"])))
+    p_ce, k_ce = ce
+    reads = {k: abs(k_metrics[k] - p_metrics[k]) / abs(p_metrics[k])
+             for k in ("loss", "grad_norm")}
+    reads["spread"] = spread(k_ce, p_ce, ce32)
+    w_gaps = labelled(p_ce - ce32)
+    dist = {}
+    if g32:
+        dist = {"plain": f32_distance(dict(tree_paths(p_grads)), g32),
+                "kernel": f32_distance(dict(tree_paths(k_grads)), g32)}
+        reads["grad_f32"] = dist["kernel"] / dist["plain"]
+    del plain, p_grads, k_grads, g32  # their cached blocks serve the steps below
+    laps["compare"] = lap()
+    rec = {"layers": cfg.n_layers, "params": n_params,
+           "kernel": {k: k_metrics[k] for k in ("loss", "grad_norm", "clip_scale", "lr")},
+           "plain": {k: p_metrics[k] for k in ("loss", "grad_norm")}, "gaps": reads,
+           "limits": run.limits, "f32_plain_loss": witness,
+           "witness_loss_gap": abs(p_metrics["loss"] - witness) / abs(witness),
+           "witness_loss_se": float(w_gaps.std()) / len(w_gaps) ** 0.5 / abs(witness),
+           "grad_distance_from_f32": dist,
+           "grads_all_zero_on_kernel_path_only": zero,
+           "largest_grad_gap_share": grad_gap, "at": grad_at,
            "largest_param_gap": param_gap, "param_gap_over_lr": param_gap / k_metrics["lr"],
-           "launches": k_counts["flash_attention_wgmma"]}
-    log(f"[train] {TRAIN_ARCH} kernel vs plain step: {json.dumps(rec)} [{card}]")
-    for k, limit in TRAIN_LIMITS.items():
-        assert gaps[k] <= limit, f"{TRAIN_ARCH} train step: {k} gap {gaps[k]} > {limit}"
-    del plain_state, p_grads, k_grads
-    torch.cuda.empty_cache()
-    profile_window(f"{TRAIN_ARCH} train step, B={TRAIN_BATCH} S={TRAIN_SEQ}", card,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+           "launches": {k: k_counts[k] for k in run.launches}, "seconds": laps}
+    log(f"[train] {arch} kernel vs plain step: {json.dumps(rec)} [{card}]")
+    for k, limit in run.limits.items():
+        assert reads[k] <= limit, f"{arch} train step: {k} {reads[k]} > {limit}"
+    if not run.steps:  # no entry-point run gave its ms a step
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        train_step_once(state, cfg, opt, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        step = {"arch": arch, "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                "ms_per_step": seconds * 1e3, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / seconds,
+                "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+                "state_gb": CARD_STATE_BYTES[arch] / 1e9}
+        log(f"[train] {arch} kernel step, timed: {json.dumps(step)} [{card}]")
+    # a further step, not the compared one: the profiled compared step (the
+    # kernel path's first) read busy shares 30-40 points low for
+    # internlm2-1.8b and gemma3-1b (PERF.md section 6)
+    profile_window(f"{arch} train step, B={TRAIN_BATCH} S={TRAIN_SEQ}", card,
                    train_step_once, state, cfg, opt, batch)
     del state
     torch.cuda.empty_cache()
-    return {"flash_attention_wgmma": {f"{TRAIN_ARCH}:train_step": k_counts[
-        "flash_attention_wgmma"], f"{TRAIN_ARCH}:train_step_plain": 0}}
+    return {name: {f"{arch}:train_step": k_counts[name], f"{arch}:train_step_plain": 0}
+            for name in run.launches}
 
 
 def training_phase(device, card) -> dict:
-    """The kernel Functions' gradients, the entry point at full width, and a
-    kernel-path step against a plain-path step. Returns the launches by
-    path."""
+    """The kernel Functions' gradients, then for each of TRAIN_RUNS the entry
+    point at full width (where it has steps) and a kernel-path step against a
+    plain-path step. Returns the launches by path."""
     t0 = time.perf_counter()
     n = grad_checks(device, card)
     log(f"[time] {n} kernel gradient checks {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    rec, counts = entry_point_run(device, card)
-    log(f"[time] {TRAIN_ARCH} entry point {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    paths = kernel_vs_plain_step(device, card)
-    log(f"[time] {TRAIN_ARCH} kernel vs plain step and profile {time.perf_counter() - t0:.1f} s")
-    paths["flash_attention_wgmma"][f"{TRAIN_ARCH}:train_main_{TRAIN_STEPS}_steps"] = counts[
-        "flash_attention_wgmma"]
-    return paths, rec
+    paths: dict[str, dict] = {}
+    records = {}
+    for arch, run in TRAIN_RUNS.items():  # one model on the card at a time
+        if run.steps:
+            t0 = time.perf_counter()
+            records[arch], counts = entry_point_run(arch, device, card)
+            log(f"[time] {arch} entry point {time.perf_counter() - t0:.1f} s")
+            for name in run.launches:
+                paths.setdefault(name, {})[f"{arch}:train_main_{run.steps}_steps"] = counts[name]
+        t0 = time.perf_counter()
+        for name, counts in kernel_vs_plain_step(arch, device, card).items():
+            paths.setdefault(name, {}).update(counts)
+        log(f"[time] {arch} kernel vs plain step and profile {time.perf_counter() - t0:.1f} s")
+    return paths, records
 
 
 # ---------------------------------------------------------------------------
@@ -2280,6 +2556,7 @@ def run(child: subprocess.Popen) -> int:
     log(f"[time] after flash phase {time.perf_counter() - t_start:.1f} s")
     scan_timings = scan_phase(device)
     log(f"[time] after scan phase {time.perf_counter() - t_start:.1f} s")
+    profiler_check(device, card)
     model_paths: dict[str, dict] = {name: {} for name in COUNTERS}
     f32_prefills = {}
     for arch in FORWARD_LAUNCHES:  # one model on the card at a time

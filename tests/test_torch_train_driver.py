@@ -7,6 +7,7 @@ import os
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import repro.launch.train as jdriver
@@ -19,6 +20,9 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.tree import tree_map
 
 ARGS = ["--arch", "internlm2-1.8b-smoke", "--steps", "4", "--log-every", "1"]
+# archs whose JAX driver turns NaN after its first step at ARGS: the SSD
+# twin's gradient overflows there (ROADMAP.md, section C)
+REFERENCE_NAN = {"zamba2-7b-smoke"}
 
 
 def jax_init(cfg, opt_cfg, generator=0, *, train_cfg=None, device="cuda"):
@@ -34,18 +38,28 @@ def jax_init(cfg, opt_cfg, generator=0, *, train_cfg=None, device="cuda"):
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def test_driver_matches_reference_driver(monkeypatch, capsys):
+@pytest.mark.parametrize("arch", ["internlm2-1.8b-smoke", "gemma3-1b-smoke", "rwkv6-3b-smoke",
+                                  "zamba2-7b-smoke"])
+def test_driver_matches_reference_driver(arch, monkeypatch, capsys):
     """Four bf16 steps at the drivers' defaults (batch 8, seq 128, lr 3e-3):
     the first loss within the port's bf16 logit tolerance (rtol 2e-2); the
     last within rtol 2e-3, which covers AdamW's sign noise (an entry whose
     gradient the packages round to opposite signs moves 2 lr apart; the gap
-    read on these inputs is 5e-5); both drivers print a line a step, and the
-    port's loss falls."""
-    want = jdriver.main(ARGS)
+    read on internlm2-1.8b-smoke's inputs is 5e-5); both drivers print a line
+    a step, and the port's loss falls. zamba2-7b-smoke's first step reaches
+    the JAX SSD twin's cliff (a chunk of 64 sums its decays past f32's exp
+    range, and its gradient is NaN): the reference's last loss is NaN, and
+    the port's losses, with its masked exponent (``kernels/ssd.py::intra_decay``),
+    are held to be finite and falling."""
+    args = [*ARGS[:1], arch, *ARGS[2:]]
+    want = jdriver.main(args)
     monkeypatch.setattr(tdriver, "init_train_state", jax_init)
-    got = tdriver.main([*ARGS, "--device", "cpu"])
+    got = tdriver.main([*args, "--device", "cpu"])
     np.testing.assert_allclose(got["first_loss"], want["first_loss"], rtol=2e-2)
-    np.testing.assert_allclose(got["last_loss"], want["last_loss"], rtol=2e-3)
+    if arch in REFERENCE_NAN:
+        assert np.isnan(want["last_loss"]), want["last_loss"]
+    else:
+        np.testing.assert_allclose(got["last_loss"], want["last_loss"], rtol=2e-3)
     assert len(got["losses"]) == 4 and all(np.isfinite(got["losses"]))
     assert got["last_loss"] < got["first_loss"]
     lines = [x for x in capsys.readouterr().out.splitlines() if x.startswith("step ")]
