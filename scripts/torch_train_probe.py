@@ -64,7 +64,6 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.data import DataConfig, synthetic_batch  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import forward, init_params, ssm  # noqa: E402
@@ -260,9 +259,9 @@ def compare(got: dict, want: dict, tokens: torch.Tensor, top: int = 3) -> dict:
     return rec
 
 
-def logit_stats(params, cfg, tokens) -> dict:
+def logit_stats(params, cfg, batch) -> dict:
     with torch.no_grad():
-        logits, _ = forward(params, cfg, tokens)
+        logits, _ = forward(params, cfg, batch["tokens"], batch.get("frontend_embeds"))
         top = torch.softmax(logits, dim=-1).amax(dim=-1)
         rec = {"logit_std": float(logits.std()), "mean_top_prob": float(top.mean()),
                "share_top_prob_over_0.99": float((top > 0.99).float().mean())}
@@ -274,7 +273,7 @@ def logit_stats(params, cfg, tokens) -> dict:
 def position_losses(params, cfg, batch, reads: list | None = None) -> torch.Tensor:
     """Each position's CE (B, S) in f64 from one forward, no gradient."""
     with torch.no_grad(), kernel_reads(reads) if reads is not None else contextlib.nullcontext():
-        logits, _ = forward(params, cfg, batch["tokens"])
+        logits, _ = forward(params, cfg, batch["tokens"], batch.get("frontend_embeds"))
         logits = logits.float()
         labels = batch["labels"].long()
         ce = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None])[..., 0]
@@ -330,17 +329,16 @@ def positions_study(params, cfg, batch, card: str) -> dict:
 
 def gap_study(args, cfg, seed: int, device, card: str) -> list:
     params = tree_map(lambda t: t.requires_grad_(), init_params(cfg, seed, device=device))
-    dcfg = DataConfig(vocab=cfg.vocab, global_batch=args.batch, seq_len=args.seq, seed=seed)
-    batch = {k: torch.from_numpy(v).to(device) for k, v in synthetic_batch(dcfg, 0).items()}
+    batch = cs.train_batch(cfg, device, args.batch, args.seq, seed)
     expect = cs.TRAIN_RUNS[args.arch].launches if device.type == "cuda" else None
     rwkv = args.group_norm and any(b.mixer == "rwkv6" for b in cfg.blocks)
     out = []
     for target in args.logit_stds:
-        stats = logit_stats(params, cfg, batch["tokens"])
+        stats = logit_stats(params, cfg, batch)
         if target > 0:
             with torch.no_grad():
                 params["unembed"].mul_(target / stats["logit_std"])
-            stats = logit_stats(params, cfg, batch["tokens"])
+            stats = logit_stats(params, cfg, batch)
         gn: dict = {"kernel": [], "plain": []} if rwkv else {}
         k1, loss_k = grads_of(params, cfg, batch, plain=False, expect=expect,
                               gn=gn.get("kernel"))

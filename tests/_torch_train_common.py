@@ -52,9 +52,17 @@ def configs(arch: str, dtype: str):
 
 
 def batch(cfg, seed: int = 0, shape=(B, S)) -> dict:
-    """tokens from a seed, labels the next token (rolled), as TestTrainStep."""
-    tok = np.random.RandomState(seed).randint(0, cfg.vocab, shape).astype(np.int32)
-    return {"tokens": tok, "labels": np.roll(tok, -1, axis=1)}
+    """tokens from a seed, labels the next token (rolled), as TestTrainStep;
+    for a frontend model (phi-3-vision, musicgen) also ``frontend_embeds``
+    (batch, frontend_tokens, d_model), standard normal from the same seed,
+    which both packages prepend to the ``shape[1]`` text tokens."""
+    rng = np.random.RandomState(seed)
+    tok = rng.randint(0, cfg.vocab, shape).astype(np.int32)
+    out = {"tokens": tok, "labels": np.roll(tok, -1, axis=1)}
+    if cfg.frontend:
+        embeds = rng.standard_normal((shape[0], cfg.frontend_tokens, cfg.d_model))
+        out["frontend_embeds"] = embeds.astype(np.float32)
+    return out
 
 
 def states(jc, tc, opt: toptim.AdamWConfig, train_cfg: ttrain.TrainConfig, seed: int = 0):
@@ -121,9 +129,10 @@ def check_metrics(got: dict, want: dict, rtol: float = METRIC_RTOL) -> None:
 
 def check_grads(got: dict, want: dict, arch: str) -> None:
     """Every gradient leaf within GRAD_RTOL, and GRAD_ATOL (or the
-    reference's own spread, SELF_SPREAD) of its largest entry."""
+    reference's own spread, SELF_SPREAD, where the arch has an entry) of its
+    largest entry."""
     assert set(got) == set(want)
-    share = max(GRAD_ATOL, SELF_SPREAD[arch])
+    share = max(GRAD_ATOL, SELF_SPREAD.get(arch, 0.0))
     for k, w in want.items():
         assert got[k].shape == w.shape, k
         atol = share * float(np.abs(w).max())

@@ -1,10 +1,10 @@
 """The port's flash attention (``repro_torch.kernels``) against the JAX
 package's, on the CPU: ``ops.flash_attention`` runs its plain version here
-(``blockwise_attention``), held against the Pallas kernel in interpret mode and
-against the dense oracle over ``tests/test_kernels.py``'s cases, with that
-file's tolerances, and with the keywords the model never passes
-(``causal=False``, a caller's ``scale``), and at MLA's head dims (v narrower
-than q and k). The bf16 kernel's arithmetic (P rounded to bf16 for P.V) is
+(``blockwise_attention``), held against the Pallas kernel in interpret mode
+and against the dense oracle over ``tests/test_kernels.py``'s cases and GQA
+groups of 9 (starcoder2-7b's), with that file's tolerances, and with the
+keywords the model never passes (``causal=False``, a caller's ``scale``), and
+at MLA's head dims (v narrower than q and k). The bf16 kernel's arithmetic (P rounded to bf16 for P.V) is
 emulated here and held to the same references and to the JAX model's logits;
 its host-side plan is checked for every (D, Dv) pair. Inputs are made with
 numpy from a seed."""
@@ -55,7 +55,13 @@ def _np(x):
     return np.asarray(x.astype(jnp.float32))
 
 
-@pytest.mark.parametrize("case", ATTN_CASES)
+# GQA groups of 9 query heads a kv head at D=128, starcoder2-7b's (36 over
+# 4), which neither tests/test_kernels.py nor a smoke config has: (B, S, H,
+# KH, D, window, bq, bk)
+GROUP9_CASES = [(1, 128, 9, 1, 128, 0, 64, 64), (2, 192, 18, 2, 128, 0, 64, 64)]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES + GROUP9_CASES)
 @pytest.mark.parametrize("name", sorted(DTYPES))
 def test_port_flash_matches_pallas_and_oracle(case, name):
     B, S, H, KH, D, window, bq, bk = case
@@ -231,7 +237,7 @@ def _emulated_attention(q, k, v, *, causal=True, window=0, scale=None, chunk=102
     return t(wgmma_emulation(t(q), t(k), t(v), causal=causal, window=window, scale=scale))
 
 
-@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("case", ATTN_CASES + GROUP9_CASES)
 def test_wgmma_arithmetic_matches_pallas_and_oracle(case):
     """P in bf16 for P.V fits the bf16 tolerance the card holds the kernel to."""
     B, S, H, KH, D, window, bq, bk = case

@@ -24,7 +24,8 @@ from repro_torch.models import transformer
 from repro_torch.models.convert import params_from_jax
 
 ARCHS = ("gemma3-1b-smoke", "internlm2-1.8b-smoke", "zamba2-7b-smoke", "rwkv6-3b-smoke",
-         "minicpm3-4b-smoke", "deepseek-v2-lite-16b-smoke", "deepseek-v3-671b-smoke")
+         "minicpm3-4b-smoke", "deepseek-v2-lite-16b-smoke", "deepseek-v3-671b-smoke",
+         "starcoder2-7b-smoke", "phi-3-vision-4.2b-smoke", "musicgen-medium-smoke")
 MOE_AUX = ("moe_balance_loss", "moe_dropped_frac", "moe_router_zloss")
 # bf16 routing: the share of top-k choices in which the port's own router may
 # differ from the JAX package's (two of 256 at most on these inputs)
@@ -55,6 +56,24 @@ def _tokens(cfg, seed=0, shape=(B, S)):
     return np.random.default_rng(seed).integers(0, cfg.vocab, shape).astype(np.int32)
 
 
+def _frontend(cfg, seed=0, batch=B):
+    """A frontend model's stubbed embeddings (batch, frontend_tokens, d_model),
+    standard normal from a seed, as the data pipeline makes them; None for a
+    text-only model. Both packages prepend them to the token embeddings."""
+    if not cfg.frontend:
+        return None
+    rng = np.random.default_rng(seed + 100)
+    return rng.standard_normal((batch, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+
+
+def _jax_in(fe):
+    return None if fe is None else jnp.asarray(fe)
+
+
+def _port_in(fe):
+    return None if fe is None else torch.from_numpy(fe)
+
+
 @pytest.mark.parametrize("name", sorted(jconfigs.list_configs()))
 def test_configs_equal(name):
     """All 20 registered configs: every field, the stack and the analytic
@@ -77,7 +96,7 @@ def test_registry_and_shapes_equal():
     assert jshapes.all_cells(jconfigs.ARCH_IDS) == tshapes.all_cells(tconfigs.ARCH_IDS)
 
 
-def f32_tol(jp, jc, tok, want, monkeypatch):
+def f32_tol(jp, jc, tok, want, monkeypatch, fe=None):
     """1e-4, or twice the JAX package's own spread where that is larger: the
     gap between its forward through the chunked scans and through the
     sequential oracles, both exact forms. RWKV-6's per-head group norm scales
@@ -89,7 +108,7 @@ def f32_tol(jp, jc, tok, want, monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(jssm, "ssd_chunked", lambda *a, chunk=64: jssm.ssd_sequential(*a))
         m.setattr(jssm, "rwkv6_chunked", lambda *a, chunk=16: jssm.rwkv6_sequential(*a))
-        exact, _ = jm.forward(jp, jc, jnp.asarray(tok))
+        exact, _ = jm.forward(jp, jc, jnp.asarray(tok), _jax_in(fe))
     spread = float(np.abs(np.asarray(exact) - want).max())
     return dict(rtol=1e-4, atol=max(1e-4, 2 * spread))
 
@@ -152,17 +171,19 @@ def test_forward_and_prefill_match_jax(arch, dtype, monkeypatch):
     """Logits, and for MoE models the aux, of ``forward`` and ``prefill``.
     A MoE model at bf16 runs on the JAX run's expert choices
     (:func:`reference_routing`), and its own router may differ from them in
-    at most MAX_ROUTE_FLIPS of the choices."""
+    at most MAX_ROUTE_FLIPS of the choices. A frontend model (phi-3-vision,
+    musicgen) gets the same seeded embeddings in both packages, prepended to
+    its S text tokens; its logits cover the text positions."""
     jc, tc, jp, tp = _pair(arch, dtype)
-    tok = _tokens(jc)
+    tok, fe = _tokens(jc), _frontend(jc)
     moe = jc.n_experts > 0
     with reference_routing(monkeypatch, moe and dtype == "bfloat16") as (in_jax, in_port, flips):
         with in_jax():
-            want, want_aux = jm.forward(jp, jc, jnp.asarray(tok))
-            want_last, want_last_aux = jm.prefill(jp, jc, jnp.asarray(tok))
+            want, want_aux = jm.forward(jp, jc, jnp.asarray(tok), _jax_in(fe))
+            want_last, want_last_aux = jm.prefill(jp, jc, jnp.asarray(tok), _jax_in(fe))
         with in_port():
-            got, aux = tm.forward(tp, tc, torch.from_numpy(tok).long())
-            got_last, last_aux = tm.prefill(tp, tc, torch.from_numpy(tok).long())
+            got, aux = tm.forward(tp, tc, torch.from_numpy(tok).long(), _port_in(fe))
+            got_last, last_aux = tm.prefill(tp, tc, torch.from_numpy(tok).long(), _port_in(fe))
     assert got.dtype == torch.float32 and tuple(got.shape) == (B, S, tc.vocab)
     assert flips["n"] <= MAX_ROUTE_FLIPS * flips["of"]
     if moe:
@@ -172,7 +193,8 @@ def test_forward_and_prefill_match_jax(arch, dtype, monkeypatch):
     else:
         assert aux == {} and last_aux == {}
     want = np.asarray(want)
-    tolerance = f32_tol(jp, jc, tok, want, monkeypatch) if dtype == "float32" else bf16_tol(want)
+    tolerance = (f32_tol(jp, jc, tok, want, monkeypatch, fe) if dtype == "float32"
+                 else bf16_tol(want))
     np.testing.assert_allclose(got.numpy(), want, **tolerance)
     assert tuple(got_last.shape) == (B, 1, tc.vocab)
     np.testing.assert_allclose(got_last.numpy(), np.asarray(want_last), **tolerance)
@@ -209,7 +231,10 @@ def test_decode_matches_jax_and_own_forward(arch):
     forward at 2e-3, as tests/test_arch_smoke.py holds the reference; for a
     MoE model at its drop-free capacity, as there (the forward dispatches a
     sequence a group, decode the batch, so the two drop different choices
-    at the configured capacity)."""
+    at the configured capacity). A frontend model's decode is text-only in
+    both packages and is held to the JAX decode alone: its forward needs the
+    frontend prefix, which a text-only decode has not seen, so the reference
+    skips that parity for frontend archs (tests/test_arch_smoke.py)."""
     cfg = tconfigs.get_config(arch)
     drop_free = dict(capacity_factor=float(cfg.n_experts / cfg.top_k)) if cfg.n_experts else {}
     jc, tc, jp, tp = _pair(arch, "float32", **drop_free)
@@ -217,7 +242,6 @@ def test_decode_matches_jax_and_own_forward(arch):
     jcache = jm.init_cache(jc, B, 16)
     step = jax.jit(lambda p, c, t: jm.decode_step(p, jc, c, t))
     tcache = tm.init_cache(tc, B, 16, device="cpu")
-    fwd, _ = tm.forward(tp, tc, torch.from_numpy(tok).long())
     outs = []
     for i in range(16):
         want, jcache = step(jp, jcache, jnp.asarray(tok[:, i : i + 1]))
@@ -225,6 +249,9 @@ def test_decode_matches_jax_and_own_forward(arch):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
         outs.append(got)
     assert tcache["length"].tolist() == [16, 16]
+    if cfg.frontend:
+        return
+    fwd, _ = tm.forward(tp, tc, torch.from_numpy(tok).long())
     np.testing.assert_allclose(torch.cat(outs, 1).numpy(), fwd.numpy(), rtol=2e-3, atol=2e-3)
 
 
@@ -247,7 +274,8 @@ def test_convert_unstacks_groups_in_layer_order():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_port_init_counts_and_determinism(arch):
     """The port's own seeded init: the analytic parameter count, the same
-    weights for the same seed, f32 logits from bf16 weights."""
+    weights for the same seed, f32 logits from bf16 weights (a frontend
+    model's from seeded frontend embeddings too)."""
     cfg = tconfigs.get_config(arch)
     a = tm.init_params(cfg, 3, device="cpu")
     b = tm.init_params(cfg, 3, device="cpu")
@@ -257,8 +285,10 @@ def test_port_init_counts_and_determinism(arch):
     assert n == cfg.param_count()
     assert torch.equal(a["embed"], b["embed"]) and a["embed"].dtype == torch.bfloat16
     assert float(a["embed"].float().abs().max()) <= 2.0  # truncated at 2 sigma
-    logits, _ = tm.forward(a, cfg, torch.from_numpy(_tokens(cfg)).long())
+    tok = torch.from_numpy(_tokens(cfg)).long()
+    logits, _ = tm.forward(a, cfg, tok, _port_in(_frontend(cfg)))
     assert logits.dtype == torch.float32 and bool(torch.isfinite(logits).all())
+    assert tuple(logits.shape) == (B, S, cfg.vocab)
 
 
 def _leaves(tree):

@@ -32,14 +32,17 @@ def _requests(module, vocab, seed):
 
 @pytest.mark.parametrize(
     "arch", ["gemma3-1b-smoke", "internlm2-1.8b-smoke", "zamba2-7b-smoke", "rwkv6-3b-smoke",
-             "minicpm3-4b-smoke", "deepseek-v2-lite-16b-smoke"]
+             "minicpm3-4b-smoke", "deepseek-v2-lite-16b-smoke", "starcoder2-7b-smoke",
+             "phi-3-vision-4.2b-smoke", "musicgen-medium-smoke"]
 )
 def test_engine_tokens_equal_jax(arch):
     """For the SSM archs a recycled slot must also have its recurrent state
     (conv window, SSD and wkv states, token shift) zeroed on admission. The
     MLA archs decode over the latent cache; deepseek-v2-lite's MoE blocks
     dispatch the whole slot batch as one group at every tick, free slots
-    included, as the JAX engine does."""
+    included, as the JAX engine does. starcoder2 and musicgen run the ungated
+    MLP; both engines serve the frontend archs (phi-3-vision, musicgen)
+    text-only, with no frontend prefix."""
     _engines_serve_equal_tokens(arch)
 
 

@@ -41,8 +41,12 @@ def one_step_matches(arch: str, train_cfg: TrainConfig, opt: AdamWConfig = OPT) 
     assert int(new["step"]) == 1 and int(new["opt"]["step"]) == 1
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b-smoke", "gemma3-1b-smoke"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b-smoke", "gemma3-1b-smoke",
+                                  "starcoder2-7b-smoke", "phi-3-vision-4.2b-smoke",
+                                  "musicgen-medium-smoke"])
 def test_train_step_matches_reference(arch):
+    """starcoder2 and musicgen train the ungated MLP; phi-3-vision's and
+    musicgen's batches carry frontend embeddings."""
     one_step_matches(arch, TrainConfig())
 
 
@@ -61,7 +65,7 @@ BF16_GRAD_TOL = {"zamba2-7b-smoke": 5e-2}
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b-smoke", "gemma3-1b-smoke", "rwkv6-3b-smoke",
-                                  "zamba2-7b-smoke"])
+                                  "zamba2-7b-smoke", "musicgen-medium-smoke"])
 def test_bf16_step_matches_reference(arch):
     """bf16 matrices (norms f32): loss, CE and the gradient norm within the
     port's bf16 logit tolerance (rtol 2e-2, ``test_torch_models.bf16_tol``),
@@ -160,7 +164,7 @@ def kernel_layers(cfg) -> dict:
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b-smoke", "gemma3-1b-smoke", "rwkv6-3b-smoke",
-                                  "zamba2-7b-smoke"])
+                                  "zamba2-7b-smoke", "musicgen-medium-smoke"])
 def test_step_reaches_each_kernel_twice_a_layer(arch, monkeypatch):
     """A train step with remat calls each kernel's wrapper twice for every
     layer that reaches it: once in the forward and once in remat's recompute
@@ -187,18 +191,49 @@ def test_step_reaches_each_kernel_twice_a_layer(arch, monkeypatch):
 
 def test_full_width_runs_kernel_layers():
     """The models chip_smoke trains at full width, and their kernel layers:
-    rwkv6-3b 32 RWKV-6, gemma3-1b 26 attention (22 windowed at 512), and
+    rwkv6-3b 32 RWKV-6, gemma3-1b 26 attention (22 windowed at 512),
     zamba2-7b cut to 4 of its 13 groups and its 3 last blocks: 23 Mamba-2
-    and 4 uses of the shared attention; with the parameter counts the
+    and 4 uses of the shared attention, and musicgen-medium 48 attention
+    (an ungated MLP, 64 frontend embeddings); with the parameter counts the
     training state follows from."""
     rwkv, gemma = get_config("rwkv6-3b"), get_config("gemma3-1b")
     zamba = dataclasses.replace(get_config("zamba2-7b"), n_pattern_repeats=4)
+    music = get_config("musicgen-medium")
     assert kernel_layers(rwkv) == {"rwkv6": 32}
     assert kernel_layers(gemma) == {"flash": 26}
     assert sum(b.window == 512 for b in gemma.blocks) == 22
     assert kernel_layers(zamba) == {"ssd": 23, "flash": 4} and zamba.n_layers == 27
-    assert [c.param_count() for c in (rwkv, gemma, zamba)] == [
-        2_863_516_160, 999_812_736, 2_690_678_832]
+    assert kernel_layers(music) == {"flash": 48}
+    assert not music.mlp_gated and music.frontend_tokens == 64
+    assert [c.param_count() for c in (rwkv, gemma, zamba, music)] == [
+        2_863_516_160, 999_812_736, 2_690_678_832, 1_365_394_944]
+
+
+# the models chip_smoke prefills and serves at full width, one at a time
+CHIP_MODELS = ["gemma3-1b", "zamba2-7b", "rwkv6-3b", "minicpm3-4b", "deepseek-v2-lite-16b",
+               "starcoder2-7b", "phi-3-vision-4.2b", "musicgen-medium"]
+# chip_smoke's counter of the bf16 kernel each kind of kernel layer reaches
+SMOKE_KERNEL = {"flash": "flash_attention_wgmma", "ssd": "ssd_scan_mma",
+                "rwkv6": "rwkv6_scan_mma"}
+
+
+@pytest.mark.parametrize("arch", CHIP_MODELS)
+def test_chip_smoke_launches_follow_the_config(arch):
+    """chip_smoke's ``FORWARD_LAUNCHES``, ``SERVING`` and ``LIMITS`` name the
+    same eight models, and a model's launches a forward are its kernel
+    layers, one launch each, as its config gives them: the weights laid out
+    on the meta device (no storage) hold one layer per block. So a row
+    cannot drift from its config."""
+    from chip_smoke import FORWARD_LAUNCHES, LIMITS, SERVING
+    from repro_torch.models import init_params
+    from repro_torch.models import transformer
+
+    assert list(FORWARD_LAUNCHES) == list(SERVING) == list(LIMITS) == CHIP_MODELS
+    cfg = get_config(arch)
+    params = init_params(cfg, torch.Generator(), device="meta")
+    assert len(transformer.layers(cfg, params["stack"])) == len(cfg.blocks) == cfg.n_layers
+    want = {SMOKE_KERNEL[k]: n for k, n in kernel_layers(cfg).items()}
+    assert FORWARD_LAUNCHES[arch] == want
 
 
 def test_train_probe_runs_on_the_cpu():

@@ -39,7 +39,7 @@ def jax_init(cfg, opt_cfg, generator=0, *, train_cfg=None, device="cuda"):
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b-smoke", "gemma3-1b-smoke", "rwkv6-3b-smoke",
-                                  "zamba2-7b-smoke"])
+                                  "zamba2-7b-smoke", "musicgen-medium-smoke"])
 def test_driver_matches_reference_driver(arch, monkeypatch, capsys):
     """Four bf16 steps at the drivers' defaults (batch 8, seq 128, lr 3e-3):
     the first loss within the port's bf16 logit tolerance (rtol 2e-2); the
@@ -50,7 +50,9 @@ def test_driver_matches_reference_driver(arch, monkeypatch, capsys):
     the JAX SSD twin's cliff (a chunk of 64 sums its decays past f32's exp
     range, and its gradient is NaN): the reference's last loss is NaN, and
     the port's losses, with its masked exponent (``kernels/ssd.py::intra_decay``),
-    are held to be finite and falling."""
+    are held to be finite and falling. musicgen-medium-smoke's batches carry
+    its frontend embeddings through both data pipelines and drivers (the
+    backbone sequence seq + frontend_tokens, the embeddings cast to bf16)."""
     args = [*ARGS[:1], arch, *ARGS[2:]]
     want = jdriver.main(args)
     monkeypatch.setattr(tdriver, "init_train_state", jax_init)
