@@ -105,7 +105,8 @@ Phases, in the order they run, each failing hard:
    training runs' shapes at B=4, S=2048 (internlm2-1.8b's 16/8 heads of
    D=128, gemma3-1b's 4/1 of D=256 at window 512 and global, zamba2-7b's
    32/32 of D=112; musicgen-medium's 24/24 of D=64 over 2112 rows, its 64
-   frontend embeddings and 2048 tokens), each causal at its window (the
+   frontend embeddings and 2048 tokens; MLA's 40/40 at (96, 64) and 16/16
+   at (192, 128)), each causal at its window (the
    test shapes, MLA's and internlm2-1.8b's also not causal with scale 0.1);
    the SSD and RWKV-6 scans at the kernel tests' cases and zamba2-7b's and
    rwkv6-3b's heads at S=4096 and at B=4, S=2048, and once past the SSD's
@@ -120,11 +121,15 @@ Phases, in the order they run, each failing hard:
    step), rwkv6-3b (2,863,516,160; 64 bf16 RWKV-6), gemma3-1b (999,812,736;
    52 bf16 flash at D=256), musicgen-medium (1,365,394,944; 96 bf16 flash at
    D=64; its batches carry 64 frontend embeddings before the 2048 tokens, in
-   bf16, as ``launch/train.py`` feeds them) and zamba2-7b cut to 27 of its
+   bf16, as ``launch/train.py`` feeds them), zamba2-7b cut to 27 of its
    81 layers (2,690,678,832; 46 bf16 SSD and 8 bf16 flash at D=112; its full
-   state does not fit one card). ``repro_torch.launch.train.main`` trains
-   internlm2-1.8b for 8 steps (every loss finite, the last below the first),
-   rwkv6-3b for 2, gemma3-1b and musicgen-medium for 3 (every loss finite);
+   state does not fit one card), minicpm3-4b at full depth (4,261,902,848;
+   124 bf16 flash at (96, 64), MLA with its q LoRA) and deepseek-v2-lite-16b
+   cut to its dense layer and 3 of its 26 MoE layers (2,254,983,168; 8 bf16
+   flash at (192, 128); its full state is 188 GB).
+   ``repro_torch.launch.train.main`` trains internlm2-1.8b for 8 steps
+   (every loss finite, the last below the first), rwkv6-3b and minicpm3-4b
+   for 2, gemma3-1b and musicgen-medium for 3 (every loss finite);
    ms a step, tokens/s (of the labelled tokens) and peak
    memory are printed. Then, for each model, one step through the plain versions on
    a copy of the parameters and one through the kernels from the same state,
@@ -135,7 +140,16 @@ Phases, in the order they run, each failing hard:
    for rwkv6-3b in place of the gradient norm, the kernel path's gradient
    distance from the f32 gradient over the plain path's; no gradient all
    zeros where the plain path's is not; the largest gradient and
-   updated-parameter gaps read. A further kernel step is timed (ms,
+   updated-parameter gaps read. minicpm3-4b's plain step moves its
+   parameters and gradients to the host before the kernel step.
+   deepseek-v2-lite-16b's plain step records its expert choices and the
+   kernel step and the witness replay them (``Routing``): the share the
+   kernel step's own router made otherwise is held to its limit, remat's
+   recompute must choose as the forward did in both paths, and a second
+   plain gradient from the same state must equal the first bit for bit;
+   the MoE terms of both paths are printed. It is compared twice, from a
+   fresh state each: at ``TrainConfig()`` and with two microbatches and
+   the MTP head at weight 0.3 (16 launches a step). A further kernel step is timed (ms,
    tokens/s, peak memory) where no entry point ran, and one more profiled
    (the device's busy share, its leading kernels). Before the first
    profiled window of the run, one of 64 known launches holds the
@@ -217,8 +231,9 @@ rwkv6-3b's (32). A full-width train step launches each kernel exactly twice
 a layer that reaches it (the forward and remat's recompute): internlm2-1.8b
 48 bf16 flash (384 in its 8-step entry-point run), rwkv6-3b 64 bf16 RWKV-6
 (128 in 2 steps), gemma3-1b 52 bf16 flash (156 in 3), musicgen-medium 96
-bf16 flash (288 in 3), zamba2-7b at 27 layers 46 bf16 SSD and 8 bf16 flash;
-each plain-path step none.
+bf16 flash (288 in 3), zamba2-7b at 27 layers 46 bf16 SSD and 8 bf16 flash,
+minicpm3-4b 124 bf16 flash (248 in 2), deepseek-v2-lite-16b at 4 layers 8
+bf16 flash (16 with two microbatches); each plain-path step none.
 ``flash_attention_hsd.launches``, ``ssd_scan_hsd.launches`` and
 ``rwkv6_scan_hsd.launches`` each count their two kernels, and each must
 equal their sum on every path. A bf16 RWKV-6 call counts one launch however
@@ -276,13 +291,13 @@ from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import decode_step, forward, init_cache, init_params, prefill  # noqa: E402
+from repro_torch.models.moe import moe_capacity  # noqa: E402
 from repro_torch.models.transformer import pick_chunk  # noqa: E402
 from repro_torch.optim import AdamWConfig, apply_updates  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.train import TrainConfig, init_train_state  # noqa: E402
 from repro_torch.train import train_step as train_step_mod  # noqa: E402
-from repro_torch.train.losses import total_loss  # noqa: E402
-from repro_torch.train.train_step import loss_and_grads  # noqa: E402
+from repro_torch.train.train_step import loss_and_grads, split_microbatches  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map, tree_paths  # noqa: E402
 
 K = 3
@@ -585,11 +600,14 @@ FLASH_SHAPES = [
 ]
 # the training runs' flash shapes at B=4, S=2048 (training phase), bf16:
 # internlm2-1.8b's (each of its step's 48 launches), gemma3-1b's windowed and
-# global layers, zamba2-7b's shared attention, and musicgen-medium's, whose
-# 2048 tokens follow 64 frontend embeddings (2112 rows, not a multiple of 128)
+# global layers, zamba2-7b's shared attention, musicgen-medium's, whose
+# 2048 tokens follow 64 frontend embeddings (2112 rows, not a multiple of
+# 128), and MLA's, minicpm3-4b's (96, 64) and deepseek-v2-lite-16b's
+# (192, 128), with Dv as a seventh entry
 TRAIN_FLASH_SHAPES = [(4, 2048, 16, 8, 128, 0), (4, 2048, 4, 1, 256, 512),
                       (4, 2048, 4, 1, 256, 0), (4, 2048, 32, 32, 112, 0),
-                      (4, 2048 + 64, 24, 24, 64, 0)]
+                      (4, 2048 + 64, 24, 24, 64, 0), (4, 2048, 40, 40, 96, 0, 64),
+                      (4, 2048, 16, 16, 192, 0, 128)]
 # the keywords the model never passes: (shape, causal, scale); small shapes,
 # then internlm2-1.8b's at S=4096, bf16 and f32 each
 FLASH_KEYWORD_CASES = [
@@ -981,9 +999,10 @@ class Routing:
     ``flips`` counts the choices in which the replaying run's own router
     differed. For a model without MoE blocks both contexts do nothing."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, choices: list | None = None):
         self.on = cfg.n_experts > 0
-        self.choices: list = []
+        self.choices: list = choices or []
+        self.own: list = []  # the replaying run's own choices, in call order
         self.flips = self.total = 0
 
     @contextlib.contextmanager
@@ -1012,6 +1031,7 @@ class Routing:
         ``per_token`` a decode step's block takes its token's choices from
         the recorded forward (call c: MoE layer c % L, token c // L)."""
         calls = itertools.count()
+        self.own = []
 
         def replaying(topk, probs, k, dim=-1):
             c, L = next(calls), len(self.choices)
@@ -1019,11 +1039,36 @@ class Routing:
             if per_token:
                 ref = ref[:, c // L : c // L + 1]
             own = topk(probs, k, dim=dim)[1]
+            self.own.append(own)
             self.flips += int((own != ref).sum())
             self.total += ref.numel()
             return probs.gather(-1, ref), ref
 
         return self._topk(replaying)
+
+    @staticmethod
+    def recompute_flips(choices: list, layers: int) -> int:
+        """The choices a train step's remat recompute made otherwise than its
+        forward. Each microbatch calls top-k for its ``layers`` MoE layers
+        in order, then again in the backward's recompute, last layer first
+        (the stack's non-reentrant checkpoints run its units backwards)."""
+        assert len(choices) % (2 * layers) == 0, (len(choices), layers)
+        flips = 0
+        for start in range(0, len(choices), 2 * layers):
+            forward = choices[start:start + layers]
+            recompute = choices[start + layers:start + 2 * layers][::-1]
+            for a, b in zip(forward, recompute):
+                assert a.shape == b.shape, (a.shape, b.shape)
+                flips += int((a != b).sum())
+        return flips
+
+    def forward_only(self, cfg, layers: int) -> "Routing":
+        """A Routing that replays the recorded train step's forward choices
+        only (each microbatch's first ``layers`` calls), for a run that
+        takes no gradient."""
+        chosen = [c for start in range(0, len(self.choices), 2 * layers)
+                  for c in self.choices[start:start + layers]]
+        return Routing(cfg, chosen)
 
     def check(self, label: str, limit: float) -> None:
         """The share of replayed choices the run's own router made otherwise,
@@ -1130,6 +1175,13 @@ def profiler_check(device, card) -> None:
         for _ in range(PROFILER_CHECK_KERNELS):
             x.add_(1.0)
 
+    # the process's first profiler session may miss a launch while CUPTI
+    # starts (63 of 64 recorded, once, on the H100): one window is profiled
+    # and discarded first, as torch.profiler's schedule warms up before it
+    # records
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        adds()
+        torch.cuda.synchronize()
     profile_window("profiler check", card, adds, expect_kernels=PROFILER_CHECK_KERNELS)
 
 
@@ -1505,9 +1557,11 @@ GRAD_FLASH_SHAPES = [
 ]
 # the other training runs' attention at B=4, S=2048, causal at the window the
 # model passes only: gemma3-1b's windowed and global layers, zamba2-7b's
-# shared attention, musicgen-medium's (2048 tokens after 64 embeddings)
+# shared attention, musicgen-medium's (2048 tokens after 64 embeddings),
+# minicpm3-4b's and deepseek-v2-lite-16b's MLA
 GRAD_FLASH_TRAIN = [(4, 2048, 4, 1, 256, 256, 512), (4, 2048, 4, 1, 256, 256, 0),
-                    (4, 2048, 32, 32, 112, 112, 0), (4, 2048 + 64, 24, 24, 64, 64, 0)]
+                    (4, 2048, 32, 32, 112, 112, 0), (4, 2048 + 64, 24, 24, 64, 64, 0),
+                    (4, 2048, 40, 40, 96, 64, 0), (4, 2048, 16, 16, 192, 128, 0)]
 # the scans at tests/test_kernels.py's cases, the models' heads at S=4096 and
 # at the training batch (zamba2-7b's, rwkv6-3b's)
 GRAD_SSD_SHAPES = [*SSD_CASES[:4], SSD_MODEL[1], SSD_TRAIN]
@@ -1545,12 +1599,16 @@ class TrainRun:
     distance from the f32 plain gradient over the plain path's);
     ``steps``: the entry point's steps (0: none); ``loss_falls``: hold its
     last loss below its first; ``repeats``: the pattern repeats kept where
-    the depth is cut."""
+    the depth is cut; ``train_cfgs``: the kernel-vs-plain comparisons, each
+    from a fresh state (a step launches ``launches`` once a microbatch);
+    ``route_flips`` in ``limits``: the share of the plain step's expert
+    choices the kernel step's own router made otherwise."""
     launches: dict
     limits: dict
     steps: int
     loss_falls: bool = False
     repeats: int | None = None
+    train_cfgs: tuple = (TrainConfig(),)
 
 
 # phase 7's runs, in order. rwkv6-3b: 32 RWKV-6 layers; gemma3-1b: 26 flash
@@ -1579,7 +1637,27 @@ class TrainRun:
 # norm_eps (the bf16 plain path's gradient norm 6.9x the f32 one's, its
 # gap to the kernel path's 0.776), so no gradient-norm gap is held there;
 # the kernel path's gradient is held no farther from the f32 plain gradient
-# than 2x the plain path's (0.254; 1.050 and 1.171 from seeds 1 and 2)
+# than 2x the plain path's (0.254; 1.050 and 1.171 from seeds 1 and 2).
+# minicpm3-4b: 62 MLA layers at (96, 64), the q LoRA, full depth; its state
+# is 42.6 GB (bf16 parameters, f32 moments), so the plain step's updated
+# parameters go to the host before the kernel step (HOST_PLAIN_SHARE).
+# deepseek-v2-lite-16b: its full state (188 GB) does not fit one card, so
+# its dense first layer and 3 of its 26 MoE layers (the f32 checks' cut,
+# F32_REPEATS), 4 MLA layers at (192, 128), and no entry point; the kernel and plain steps route alike (Routing), once
+# at TrainConfig() and once, from a fresh state, with two microbatches and
+# the MTP head (MOE_TRAIN_CFG). Limits 2-4x what the H100 read from seed 0
+# (PERF.md section 2): minicpm3-4b's loss and gradient-norm gaps 9.58e-5
+# and 8.08e-4, spread 1.136; deepseek-v2-lite-16b's, the larger of its two
+# comparisons, 6.72e-6 and 1.85e-4, spread 1.038, and its kernel step's
+# own router differed in 3.51% of the choices (10,360 of 294,912)
+MOE_TRAIN_CFG = TrainConfig(microbatches=2, mtp_weight=0.3)
+# the comparison moves the plain step's updated parameters to the host
+# before the kernel step where the state and three copies of the parameters
+# (the plain copy, both paths' gradients) would take more than this share of
+# the card: minicpm3-4b's 68 GB of 80 (with its plain gradients on the host
+# too its comparison peaked at 66.5 GB); the other runs' 16-46 GB stay on the
+# card (rwkv6-3b's 46 GB peaked at 64.3)
+HOST_PLAIN_SHARE = 0.75
 TRAIN_RUNS = {
     TRAIN_ARCH: TrainRun(TRAIN_LAUNCHES, TRAIN_LIMITS, TRAIN_STEPS, loss_falls=True),
     "rwkv6-3b": TrainRun({"rwkv6_scan_mma": 64},
@@ -1590,6 +1668,12 @@ TRAIN_RUNS = {
                                 {"loss": 3e-4, "grad_norm": 1.5e-3, "spread": 2.5}, 3),
     "zamba2-7b": TrainRun({"ssd_scan_mma": 46, "flash_attention_wgmma": 8},
                           {"loss": 1.5e-4, "grad_norm": 1.2e-3, "spread": 2.0}, 0, repeats=4),
+    "minicpm3-4b": TrainRun({"flash_attention_wgmma": 124},
+                            {"loss": 3e-4, "grad_norm": 2.5e-3, "spread": 2.5}, 2),
+    "deepseek-v2-lite-16b": TrainRun(
+        {"flash_attention_wgmma": 8},
+        {"loss": 2e-5, "grad_norm": 6e-4, "spread": 2.5, "route_flips": 0.1}, 0, repeats=3,
+        train_cfgs=(TrainConfig(), MOE_TRAIN_CFG)),
 }
 
 
@@ -1742,10 +1826,10 @@ def entry_point_run(arch: str, device, card) -> tuple[dict, dict]:
     return rec, counts
 
 
-def train_step_once(state, cfg, opt, batch):
+def train_step_once(state, cfg, opt, batch, train_cfg: TrainConfig = TrainConfig()):
     """One train step, keeping its gradients: what ``make_train_step``'s step
     runs (``loss_and_grads``, then ``apply_updates``)."""
-    grads, metrics = loss_and_grads(state["params"], cfg, TrainConfig(), batch)
+    grads, metrics = loss_and_grads(state["params"], cfg, train_cfg, batch)
     _, state["opt"], opt_metrics = apply_updates(opt, state["params"], grads, state["opt"])
     return grads, {k: float(v) for k, v in {**metrics, **opt_metrics}.items()}
 
@@ -1753,13 +1837,15 @@ def train_step_once(state, cfg, opt, batch):
 @contextlib.contextmanager
 def position_losses(store: list):
     """Each loss the block computes through ``loss_and_grads`` also kept in
-    ``store`` per position: the CE (B, S) in f64, from the logits the loss
-    takes (no second forward)."""
+    ``store``: the CE by position (B, S) in f64, from the logits the loss
+    takes (no second forward), and the MoE terms of its aux (the layers'
+    sums), as ``(ce, {name: f32 scalar})``; one entry a microbatch."""
     saved = train_step_mod.total_loss
 
     def loss(logits, labels, aux, **kw):
         with torch.no_grad():
-            store.append(position_ce(logits, labels))
+            store.append((position_ce(logits, labels),
+                          {k: v.detach().float() for k, v in aux.items() if k.startswith("moe_")}))
         return saved(logits, labels, aux, **kw)
 
     train_step_mod.total_loss = loss
@@ -1782,28 +1868,45 @@ def labelled(t: torch.Tensor) -> torch.Tensor:
     return t[~t.isnan()]
 
 
-def f32_plain_witness(params, cfg, batch, with_grads: bool) -> tuple[float, torch.Tensor, dict]:
-    """The f32 plain path (weights upcast): its loss and its CE by position,
-    the witness of what bf16 rounding alone moves, and with ``with_grads``
-    its gradient (leaf path -> f32 gradient; else an empty dict)."""
+def stored_ce(store: list) -> torch.Tensor:
+    """The CE by position of a step's microbatches (``position_losses``),
+    as one (B, S) tensor."""
+    return torch.cat([ce for ce, _ in store])
+
+
+def stored_moe(store: list) -> dict:
+    """A step's MoE terms (``position_losses``), each the mean over its
+    microbatches, as floats."""
+    return {k: sum(float(aux[k]) for _, aux in store) / len(store) for k in store[0][1]}
+
+
+def f32_plain_witness(params, cfg, batch, with_grads: bool,
+                      train_cfg: TrainConfig = TrainConfig(),
+                      routing: Routing | None = None) -> tuple[float, torch.Tensor, dict]:
+    """The f32 plain path (weights upcast): its loss (the step's: the CE,
+    the MoE terms and an MTP head's, over the microbatches) and its CE by
+    position, the witness of what bf16 rounding alone moves, and with
+    ``with_grads`` its gradient (leaf path -> f32 gradient; else an empty
+    dict). A MoE model's blocks take ``routing``'s choices."""
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    if not with_grads:
-        with torch.no_grad(), plain_kernels():
-            p32 = tree_map(lambda t: t.detach().float(), params)
-            logits, aux = forward(p32, cfg32, batch["tokens"], batch.get("frontend_embeds"))
-            loss = float(total_loss(logits, batch["labels"], aux)[0])
-            ce = position_ce(logits, batch["labels"])
-        del p32, logits
-        torch.cuda.empty_cache()
-        return loss, ce, {}
     store: list = []
+    routed = routing.replay() if routing is not None else contextlib.nullcontext()
+    if not with_grads:
+        with torch.no_grad(), plain_kernels(), position_losses(store), routed:
+            p32 = tree_map(lambda t: t.detach().float(), params)
+            parts = split_microbatches(batch, train_cfg.microbatches)
+            loss = sum(float(train_step_mod._loss_fn(p32, cfg32, train_cfg, mb)[0])
+                       for mb in parts) / len(parts)
+        del p32
+        torch.cuda.empty_cache()
+        return loss, stored_ce(store), {}
     p32 = tree_map(lambda t: t.detach().float().requires_grad_(), params)
-    with plain_kernels(), position_losses(store):
+    with plain_kernels(), position_losses(store), routed:
         (grads, metrics), _ = counted_all(f"{cfg.name} f32 plain gradient", {},
-                                          loss_and_grads, p32, cfg32, TrainConfig(), batch)
+                                          loss_and_grads, p32, cfg32, train_cfg, batch)
     del p32
     torch.cuda.empty_cache()
-    return float(metrics["loss"]), store[0], dict(tree_paths(grads))
+    return float(metrics["loss"]), stored_ce(store), dict(tree_paths(grads))
 
 
 def spread(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> float:
@@ -1819,23 +1922,46 @@ def f32_distance(grads: dict, g32: dict) -> float:
     return (num / den) ** 0.5
 
 
-def kernel_vs_plain_step(arch: str, device, card) -> dict:
+def cfg_tag(train_cfg: TrainConfig) -> str:
+    """A comparison's suffix in the launches by path: ``""`` at
+    TrainConfig(), else its microbatches and MTP head."""
+    tag = f"_mb{train_cfg.microbatches}" if train_cfg.microbatches > 1 else ""
+    return tag + ("_mtp" if train_cfg.mtp_weight > 0 else "")
+
+
+def kernel_vs_plain_step(arch: str, device, card,
+                         train_cfg: TrainConfig = TrainConfig()) -> dict:
     """One full-width step through the plain versions and one, from the same
     state, through the kernels, holding one training state: the plain step
     runs on a copy of the parameters and the state's zero AdamW moments,
     which are then zeroed again for the kernel step (step 0's moments are
-    zero). Exactly the run's launches on the kernel path, none on the plain
-    path. Beside them the witness, the f32 plain path (a forward, or with
-    ``grad_f32`` in the run's limits a gradient): the bf16 plain loss's gap
-    to its loss and the standard error of the per-position gaps' mean. What
-    is held to the run's limits: the relative gaps of the loss and the
-    gradient norm; ``spread``, the per-position loss gaps between the paths
-    over those of the witness (standard deviations); ``grad_f32``, the
-    kernel path's gradient distance from the f32 gradient over the plain
-    path's. No gradient all zeros where the plain path's is not; the largest
-    gradient and updated-parameter gaps read, leaf by leaf. Then a further
-    kernel step is timed (ms, tokens/s, peak memory) where no entry point
-    ran, and one more profiled. Returns the launches by path."""
+    zero). Exactly the run's launches on the kernel path (once a
+    microbatch), none on the plain path. Beside them the witness, the f32
+    plain path (a forward, or with ``grad_f32`` in the run's limits a
+    gradient): the bf16 plain loss's gap to its loss and the standard error
+    of the per-position gaps' mean. What is held to the run's limits: the
+    relative gaps of the loss and the gradient norm; ``spread``, the
+    per-position loss gaps between the paths over those of the witness
+    (standard deviations); ``grad_f32``, the kernel path's gradient distance
+    from the f32 gradient over the plain path's; ``route_flips``. No
+    gradient all zeros where the plain path's is not; the largest gradient
+    and updated-parameter gaps read, leaf by leaf.
+
+    A MoE model's plain step records its expert choices (``Routing``), and
+    the kernel step and the witness replay them, in call order: each
+    microbatch's forward, then remat's recompute. Within each path the
+    recompute must choose as its forward did (else the gradient is another
+    function's), and two plain gradients from one state must be equal bit
+    for bit (the dispatch's scatters and gathers, and their backward, on
+    the card); the MoE terms of both paths are read.
+
+    Where the state and three copies of the parameters would fill more
+    than HOST_PLAIN_SHARE of the card, the plain step's updated parameters
+    go to the host before the kernel step.
+
+    Then, at the run's first config, a further kernel step is timed (ms,
+    tokens/s, peak memory) where no entry point ran, and one more profiled.
+    Returns the launches by path."""
     clock = [time.perf_counter()]
 
     def lap() -> float:
@@ -1843,35 +1969,76 @@ def kernel_vs_plain_step(arch: str, device, card) -> dict:
         return round(clock[-1] - clock[-2], 1)
 
     run = TRAIN_RUNS[arch]
+    first = train_cfg == run.train_cfgs[0]
+    label = f"{arch}{cfg_tag(train_cfg)}"
+    launches = {k: n * train_cfg.microbatches for k, n in run.launches.items()}
     cfg = train_config(arch)
     opt = train_opt(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    state = init_train_state(cfg, opt, SEED, device=device)
+    state = init_train_state(cfg, opt, SEED, train_cfg=train_cfg, device=device)
     # the training state the card holds (params, AdamW moments, steps): the
     # dry run's (1, 1)-mesh static bytes must equal internlm2-1.8b's
-    CARD_STATE_BYTES[arch] = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    if first:
+        CARD_STATE_BYTES[arch] = state_bytes
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
-    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    mtp = cfg.d_model ** 2 if train_cfg.mtp_weight > 0 else 0  # the MTP head's projection
+    assert n_params == cfg.param_count() + mtp, (n_params, cfg.param_count())
     batch = train_batch(cfg, device)
     laps = {"init": lap()}
-    witness, ce32, g32 = f32_plain_witness(state["params"], cfg, batch, "grad_f32" in run.limits)
-    laps["witness"] = lap()
+    routing = Routing(cfg)
+    moe_layers = sum(b.mlp == "moe" for b in cfg.blocks)
+
+    def witness_run(forward_routing=None):
+        return f32_plain_witness(state["params"], cfg, batch, "grad_f32" in run.limits,
+                                 train_cfg, forward_routing)
+
+    if not routing.on:
+        witness, ce32, g32 = witness_run()
+        laps["witness"] = lap()
     plain = {"params": tree_map(lambda t: t.detach().clone().requires_grad_(t.requires_grad),
                                 state["params"]), "opt": state["opt"]}
-    ce: list = []
-    with plain_kernels(), position_losses(ce):
-        (p_grads, p_metrics), _ = counted_all(f"{arch} train step (plain)", {},
-                                              train_step_once, plain, cfg, opt, batch)
+    p_store: list = []
+    with plain_kernels(), position_losses(p_store), routing.record():
+        (p_grads, p_metrics), _ = counted_all(f"{label} train step (plain)", {},
+                                              train_step_once, plain, cfg, opt, batch, train_cfg)
     laps["plain_step"] = lap()
+    moe = {}
+    if routing.on:
+        moe["recompute_flips_plain"] = Routing.recompute_flips(routing.choices, moe_layers)
+        # the same plain gradient again, from the parameters the plain copy
+        # was taken from (the kernel step's, not yet updated), routed by its
+        # own router
+        with plain_kernels():
+            (again, again_metrics), _ = counted_all(f"{label} plain gradient again", {},
+                                                    loss_and_grads, state["params"], cfg,
+                                                    train_cfg, batch)
+        moe["plain_twice_equal_leaves"] = sum(
+            same_bits(a, b) for a, b in zip(tree_leaves(again), tree_leaves(p_grads)))
+        moe["leaves"] = len(tree_leaves(p_grads))
+        moe["plain_twice_equal_metrics"] = all(
+            float(again_metrics[k]) == p_metrics[k] for k in again_metrics)
+        del again
+        witness, ce32, g32 = witness_run(routing.forward_only(cfg, moe_layers))
+        laps["witness"] = lap()
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state["params"]))
+    host_plain = (state_bytes + 3 * param_bytes
+                  > HOST_PLAIN_SHARE * torch.cuda.get_device_properties(device).total_memory)
+    if host_plain:  # the kernel step's state, activations and gradients need the room
+        plain = {"params": tree_map(lambda t: t.detach().cpu(), plain["params"])}
+        torch.cuda.empty_cache()
+        laps["to_host"] = lap()
     with torch.no_grad():  # step 0's moments again
         for key, tree in state["opt"].items():
             if key != "step":
                 for t in tree_leaves(tree):
                     t.zero_()
-    with position_losses(ce):
+    k_store: list = []
+    with position_losses(k_store), routing.replay():
         (k_grads, k_metrics), k_counts = counted_all(
-            f"{arch} train step (kernel)", run.launches, train_step_once, state, cfg, opt, batch)
+            f"{label} train step (kernel)", launches, train_step_once, state, cfg, opt, batch,
+            train_cfg)
     laps["kernel_step"] = lap()
     zero, grad_gap, grad_at = 0, 0.0, ""
     for (path, g), (_, w) in zip(tree_paths(k_grads), tree_paths(p_grads)):
@@ -1880,11 +2047,11 @@ def kernel_vs_plain_step(arch: str, device, card) -> dict:
         gap = float((g.float() - w.float()).abs().max()) / float(w.float().abs().max())
         if gap > grad_gap:
             grad_gap, grad_at = gap, path
-    log(f"[train] {arch}: {zero} gradients all zero on the kernel path only")
-    assert not zero, f"{arch}: {zero} gradients all zero on the kernel path only"
-    param_gap = max(float((a.detach().float() - b.detach().float()).abs().max()) for a, b in
-                    zip(tree_leaves(state["params"]), tree_leaves(plain["params"])))
-    p_ce, k_ce = ce
+    log(f"[train] {label}: {zero} gradients all zero on the kernel path only")
+    assert not zero, f"{label}: {zero} gradients all zero on the kernel path only"
+    param_gap = max(float((a.detach().float() - b.detach().to(a.device).float()).abs().max())
+                    for a, b in zip(tree_leaves(state["params"]), tree_leaves(plain["params"])))
+    p_ce, k_ce = stored_ce(p_store), stored_ce(k_store)
     reads = {k: abs(k_metrics[k] - p_metrics[k]) / abs(p_metrics[k])
              for k in ("loss", "grad_norm")}
     reads["spread"] = spread(k_ce, p_ce, ce32)
@@ -1894,9 +2061,17 @@ def kernel_vs_plain_step(arch: str, device, card) -> dict:
         dist = {"plain": f32_distance(dict(tree_paths(p_grads)), g32),
                 "kernel": f32_distance(dict(tree_paths(k_grads)), g32)}
         reads["grad_f32"] = dist["kernel"] / dist["plain"]
+    if routing.on:
+        assert len(routing.own) == len(routing.choices), (len(routing.own), len(routing.choices))
+        reads["route_flips"] = routing.flips / routing.total
+        moe.update({"kernel_flips": routing.flips, "choices": routing.total,
+                    "recompute_flips_kernel": Routing.recompute_flips(routing.own, moe_layers),
+                    "plain": stored_moe(p_store), "kernel": stored_moe(k_store),
+                    "capacity": moe_capacity(TRAIN_SEQ, cfg)})
     del plain, p_grads, k_grads, g32  # their cached blocks serve the steps below
     laps["compare"] = lap()
     rec = {"layers": cfg.n_layers, "params": n_params,
+           "microbatches": train_cfg.microbatches, "mtp_weight": train_cfg.mtp_weight,
            "kernel": {k: k_metrics[k] for k in ("loss", "grad_norm", "clip_scale", "lr")},
            "plain": {k: p_metrics[k] for k in ("loss", "grad_norm")}, "gaps": reads,
            "limits": run.limits, "f32_plain_loss": witness,
@@ -1907,36 +2082,48 @@ def kernel_vs_plain_step(arch: str, device, card) -> dict:
            "largest_grad_gap_share": grad_gap, "at": grad_at,
            "largest_param_gap": param_gap, "param_gap_over_lr": param_gap / k_metrics["lr"],
            "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
-           "launches": {k: k_counts[k] for k in run.launches}, "seconds": laps}
-    log(f"[train] {arch} kernel vs plain step: {json.dumps(rec)} [{card}]")
+           "state_gb": state_bytes / 1e9, "moe": moe,
+           "launches": {k: k_counts[k] for k in launches}, "seconds": laps}
+    if "mtp_ce" in k_metrics:
+        rec["mtp_ce"] = {"kernel": k_metrics["mtp_ce"], "plain": p_metrics["mtp_ce"]}
+    log(f"[train] {label} kernel vs plain step: {json.dumps(rec)} [{card}]")
     for k, limit in run.limits.items():
-        assert reads[k] <= limit, f"{arch} train step: {k} {reads[k]} > {limit}"
-    if not run.steps:  # no entry-point run gave its ms a step
+        assert reads[k] <= limit, f"{label} train step: {k} {reads[k]} > {limit}"
+    if routing.on:
+        assert moe["recompute_flips_plain"] == 0 and moe["recompute_flips_kernel"] == 0, (
+            f"{label}: remat's recompute chose other experts than its forward")
+        assert moe["plain_twice_equal_leaves"] == moe["leaves"], (
+            f"{label}: two plain gradients from one state differ")
+        assert moe["plain_twice_equal_metrics"], f"{label}: two plain steps' metrics differ"
+    if first and not run.steps:  # no entry-point run gave its ms a step
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        train_step_once(state, cfg, opt, batch)
+        train_step_once(state, cfg, opt, batch, train_cfg)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         step = {"arch": arch, "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
                 "ms_per_step": seconds * 1e3, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / seconds,
                 "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
-                "state_gb": CARD_STATE_BYTES[arch] / 1e9}
+                "state_gb": state_bytes / 1e9}
         log(f"[train] {arch} kernel step, timed: {json.dumps(step)} [{card}]")
-    # a further step, not the compared one: the profiled compared step (the
-    # kernel path's first) read busy shares 30-40 points low for
-    # internlm2-1.8b and gemma3-1b (PERF.md section 6)
-    profile_window(f"{arch} train step, B={TRAIN_BATCH} S={TRAIN_SEQ}", card,
-                   train_step_once, state, cfg, opt, batch)
+    if first:
+        # a further step, not the compared one: the profiled compared step
+        # (the kernel path's first) read busy shares 30-40 points low for
+        # internlm2-1.8b and gemma3-1b (PERF.md section 6)
+        profile_window(f"{arch} train step, B={TRAIN_BATCH} S={TRAIN_SEQ}", card,
+                       train_step_once, state, cfg, opt, batch, train_cfg)
     del state
     torch.cuda.empty_cache()
-    return {name: {f"{arch}:train_step": k_counts[name], f"{arch}:train_step_plain": 0}
-            for name in run.launches}
+    tag = cfg_tag(train_cfg)
+    return {name: {f"{arch}:train_step{tag}": k_counts[name],
+                   f"{arch}:train_step{tag}_plain": 0} for name in launches}
 
 
 def training_phase(device, card) -> dict:
     """The kernel Functions' gradients, then for each of TRAIN_RUNS the entry
-    point at full width (where it has steps) and a kernel-path step against a
-    plain-path step. Returns the launches by path."""
+    point at full width (where it has steps) and, for each of its configs, a
+    kernel-path step against a plain-path step. Returns the launches by
+    path."""
     t0 = time.perf_counter()
     n = grad_checks(device, card)
     log(f"[time] {n} kernel gradient checks {time.perf_counter() - t0:.1f} s")
@@ -1949,10 +2136,12 @@ def training_phase(device, card) -> dict:
             log(f"[time] {arch} entry point {time.perf_counter() - t0:.1f} s")
             for name in run.launches:
                 paths.setdefault(name, {})[f"{arch}:train_main_{run.steps}_steps"] = counts[name]
-        t0 = time.perf_counter()
-        for name, counts in kernel_vs_plain_step(arch, device, card).items():
-            paths.setdefault(name, {}).update(counts)
-        log(f"[time] {arch} kernel vs plain step and profile {time.perf_counter() - t0:.1f} s")
+        for train_cfg in run.train_cfgs:
+            t0 = time.perf_counter()
+            for name, counts in kernel_vs_plain_step(arch, device, card, train_cfg).items():
+                paths.setdefault(name, {}).update(counts)
+            log(f"[time] {arch}{cfg_tag(train_cfg)} kernel vs plain step and profile "
+                f"{time.perf_counter() - t0:.1f} s")
     return paths, records
 
 

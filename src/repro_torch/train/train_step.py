@@ -27,7 +27,8 @@ from .losses import total_loss
 
 Tensor = torch.Tensor
 
-__all__ = ["TrainConfig", "init_train_state", "loss_and_grads", "make_train_step"]
+__all__ = ["TrainConfig", "init_train_state", "loss_and_grads", "make_train_step",
+           "split_microbatches"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +76,12 @@ def _grads(params: dict, cfg, train_cfg: TrainConfig, batch: dict) -> tuple[list
     return list(grads), {k: torch.as_tensor(v).detach().float() for k, v in metrics.items()}
 
 
+def split_microbatches(batch: dict, n: int) -> list[dict]:
+    """The batch as ``n`` microbatches, each a slice along the first axis."""
+    return [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i] for k, v in batch.items()}
+            for i in range(n)]
+
+
 def loss_and_grads(params: dict, cfg, train_cfg: TrainConfig, batch: dict) -> tuple[dict, dict]:
     """The gradient of the step's loss against every parameter, in the
     parameters' tree, and the loss metrics. With ``microbatches`` n > 1 the
@@ -85,8 +92,7 @@ def loss_and_grads(params: dict, cfg, train_cfg: TrainConfig, batch: dict) -> tu
         grads, metrics = _grads(params, cfg, train_cfg, batch)
     else:
         grads, metrics = None, None
-        for i in range(n):
-            mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i] for k, v in batch.items()}
+        for mb in split_microbatches(batch, n):
             g, m = _grads(params, cfg, train_cfg, mb)
             if grads is None:
                 grads = [torch.zeros(t.shape, dtype=torch.float32, device=t.device) for t in g]

@@ -79,16 +79,29 @@ def states(jc, tc, opt: toptim.AdamWConfig, train_cfg: ttrain.TrainConfig, seed:
 
 def jax_step(jc, opt, train_cfg, jstate, jbatch, *, with_grads: bool = True):
     """The JAX package's ``make_train_step`` (jitted) on ``jbatch``; with
-    ``with_grads`` also the gradient of its loss at the state's params."""
+    ``with_grads`` also the gradient its step takes at the state's params:
+    with ``microbatches`` n > 1, each microbatch's gradient accumulated in
+    f32 and divided by n, as its step accumulates them (the MoE terms are
+    not linear in the batch, so that is not the whole batch's gradient)."""
     jopt = joptim.AdamWConfig(**dataclasses.asdict(opt))
     jtc = jtrain.TrainConfig(**dataclasses.asdict(train_cfg))
     step = jtrain.make_train_step(jc, jopt, jtc)
+    n = train_cfg.microbatches
+
+    def grad(params, b):
+        return jax.grad(lambda p: jax_loss_fn(p, jc, jtc, b)[0])(params)
 
     def both(state, b):
         new_state, metrics = step(state, b)
         if not with_grads:
             return new_state, metrics, None
-        grads = jax.grad(lambda p: jax_loss_fn(p, jc, jtc, b)[0])(state["params"])
+        if n == 1:
+            return new_state, metrics, grad(state["params"], b)
+        grads = jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), state["params"])
+        for i in range(n):
+            mb = jax.tree.map(lambda x: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i], b)
+            grads = jax.tree.map(lambda a, g: a + g.astype(jnp.float32) / n, grads,
+                                 grad(state["params"], mb))
         return new_state, metrics, grads
 
     return jax.jit(both)(jstate, {k: jnp.asarray(v) for k, v in jbatch.items()})
