@@ -67,10 +67,12 @@ Phases, in the order they run, each failing hard:
    starcoder2-7b and phi-3-vision-4.2b: 32 bf16 flash; musicgen-medium: 48
    bf16 flash; the f32 checks of each model
    the same counts, on the f32 kernels, but at a cut depth, full width, for
-   two models (``F32_REPEATS``): deepseek-v2-lite-16b's f32 copy would not
+   five models (``F32_REPEATS``): deepseek-v2-lite-16b's f32 copy would not
    fit beside its bf16 weights, so its f32 checks run its dense first layer
    and 3 MoE layers (4 f32 flash); zamba2-7b's run 4 of its 13 groups and
-   its last 3 blocks (23 f32 SSD, 4 f32 flash) to keep the run's time). At
+   its last 3 blocks (23 f32 SSD, 4 f32 flash), and starcoder2-7b's,
+   phi-3-vision-4.2b's and musicgen-medium's their first 8 layers (8 f32
+   flash), to keep the run's time). At
    S=4096 the last-position logits through the kernels and through their plain
    versions must agree within the model's limit (a share of the largest logit,
    2-4x the gap read on the card) with the same top-1 token, and so must
@@ -97,7 +99,8 @@ Phases, in the order they run, each failing hard:
    frontend model's text-only decode has not seen the prefix its forward
    takes, so it is held finite, of the right shape and cache length, as
    the reference's ``test_frontend_decode_runs`` holds it, at bf16 and at
-   f32. A profiler window over 4 ticks shows the device's busy share.
+   f32. A profiler window over 4 ticks (2 for starcoder2-7b,
+   phi-3-vision-4.2b and musicgen-medium) shows the device's busy share.
 7. Training: each kernel's ``autograd.Function`` (the kernel forward, the
    plain version's gradient: the JAX package has no backward kernel) against
    the plain version under autograd, bf16 and f32: flash attention at
@@ -106,7 +109,9 @@ Phases, in the order they run, each failing hard:
    D=128, gemma3-1b's 4/1 of D=256 at window 512 and global, zamba2-7b's
    32/32 of D=112; musicgen-medium's 24/24 of D=64 over 2112 rows, its 64
    frontend embeddings and 2048 tokens; MLA's 40/40 at (96, 64) and 16/16
-   at (192, 128)), each causal at its window (the
+   at (192, 128); starcoder2-7b's 36/4 of D=128, a group of 9;
+   phi-3-vision-4.2b's 32/32 of D=96 over 2304 rows, its 256 frontend
+   embeddings and 2048 tokens), each causal at its window (the
    test shapes, MLA's and internlm2-1.8b's also not causal with scale 0.1);
    the SSD and RWKV-6 scans at the kernel tests' cases and zamba2-7b's and
    rwkv6-3b's heads at S=4096 and at B=4, S=2048, and once past the SSD's
@@ -126,10 +131,15 @@ Phases, in the order they run, each failing hard:
    state does not fit one card), minicpm3-4b at full depth (4,261,902,848;
    124 bf16 flash at (96, 64), MLA with its q LoRA) and deepseek-v2-lite-16b
    cut to its dense layer and 3 of its 26 MoE layers (2,254,983,168; 8 bf16
-   flash at (192, 128); its full state is 188 GB).
+   flash at (192, 128); its full state is 188 GB), phi-3-vision-4.2b at
+   full depth (3,821,079,552; 64 bf16 flash at D=96 over its 256 frontend
+   embeddings and 2048 tokens) and starcoder2-7b cut to 12 of its 32 layers
+   (3,057,762,816; 24 bf16 flash, a GQA group of 9; its full state and
+   gradients, 89 GB, do not fit).
    ``repro_torch.launch.train.main`` trains internlm2-1.8b for 8 steps
-   (every loss finite, the last below the first), rwkv6-3b and minicpm3-4b
-   for 2, gemma3-1b and musicgen-medium for 3 (every loss finite);
+   (every loss finite, the last below the first), rwkv6-3b, musicgen-medium,
+   minicpm3-4b and phi-3-vision-4.2b for 2, gemma3-1b for 3 (every loss
+   finite);
    ms a step, tokens/s (of the labelled tokens) and peak
    memory are printed. Then, for each model, one step through the plain versions on
    a copy of the parameters and one through the kernels from the same state,
@@ -140,8 +150,8 @@ Phases, in the order they run, each failing hard:
    for rwkv6-3b in place of the gradient norm, the kernel path's gradient
    distance from the f32 gradient over the plain path's; no gradient all
    zeros where the plain path's is not; the largest gradient and
-   updated-parameter gaps read. minicpm3-4b's plain step moves its
-   parameters and gradients to the host before the kernel step.
+   updated-parameter gaps read. minicpm3-4b's plain step moves its updated
+   parameters to the host before the kernel step (``HOST_PLAIN_SHARE``).
    deepseek-v2-lite-16b's plain step records its expert choices and the
    kernel step and the witness replay them (``Routing``): the share the
    kernel step's own router made otherwise is held to its limit, remat's
@@ -174,10 +184,12 @@ Phases, in the order they run, each failing hard:
    ``OnlineScheduler`` solves (OTFS and OTFA, k=3, all 12 scenarios, seeds
    0-1, 8 jobs) is replayed through the CUDA kernel (``solver="cuda"``) and
    through its plain PyTorch version (``solver="sparse"``), both on the
-   card at ``n_iters=400``, singly and as ``solve_many`` batches of up to 64.
+   card at ``n_iters=400``, as ``solve_many`` batches of up to 64 and singly
+   (the plain version singly seed 0's programs only, for the run's time).
    Rounded routes, bandwidths and spans must be identical, relaxed spans
-   within rtol 5e-2. The kernel and the plain version are timed with CUDA
-   events on batches from that stream, where ``w``, spans and step counts
+   within rtol 5e-2, on every program both ran. The kernel and the plain
+   version are timed with CUDA events on batches from that stream, where
+   ``w``, spans and step counts
    must agree bit for bit; beside each time stand the batch's slowest lane's
    steps, the time per step, and the latency floor: those steps times one
    step's minimum dependent chain, timed by the source's one-warp
@@ -231,9 +243,10 @@ rwkv6-3b's (32). A full-width train step launches each kernel exactly twice
 a layer that reaches it (the forward and remat's recompute): internlm2-1.8b
 48 bf16 flash (384 in its 8-step entry-point run), rwkv6-3b 64 bf16 RWKV-6
 (128 in 2 steps), gemma3-1b 52 bf16 flash (156 in 3), musicgen-medium 96
-bf16 flash (288 in 3), zamba2-7b at 27 layers 46 bf16 SSD and 8 bf16 flash,
+bf16 flash (192 in 2), zamba2-7b at 27 layers 46 bf16 SSD and 8 bf16 flash,
 minicpm3-4b 124 bf16 flash (248 in 2), deepseek-v2-lite-16b at 4 layers 8
-bf16 flash (16 with two microbatches); each plain-path step none.
+bf16 flash (16 with two microbatches), phi-3-vision-4.2b 64 bf16 flash (128
+in 2), starcoder2-7b at 12 layers 24 bf16 flash; each plain-path step none.
 ``flash_attention_hsd.launches``, ``ssd_scan_hsd.launches`` and
 ``rwkv6_scan_hsd.launches`` each count their two kernels, and each must
 equal their sum on every path. A bf16 RWKV-6 call counts one launch however
@@ -602,12 +615,15 @@ FLASH_SHAPES = [
 # internlm2-1.8b's (each of its step's 48 launches), gemma3-1b's windowed and
 # global layers, zamba2-7b's shared attention, musicgen-medium's, whose
 # 2048 tokens follow 64 frontend embeddings (2112 rows, not a multiple of
-# 128), and MLA's, minicpm3-4b's (96, 64) and deepseek-v2-lite-16b's
-# (192, 128), with Dv as a seventh entry
+# 128), MLA's, minicpm3-4b's (96, 64) and deepseek-v2-lite-16b's
+# (192, 128), with Dv as a seventh entry, starcoder2-7b's (36/4 heads, a
+# GQA group of 9) and phi-3-vision-4.2b's (D = Dv = 96 over 256 frontend
+# embeddings and 2048 tokens)
 TRAIN_FLASH_SHAPES = [(4, 2048, 16, 8, 128, 0), (4, 2048, 4, 1, 256, 512),
                       (4, 2048, 4, 1, 256, 0), (4, 2048, 32, 32, 112, 0),
                       (4, 2048 + 64, 24, 24, 64, 0), (4, 2048, 40, 40, 96, 0, 64),
-                      (4, 2048, 16, 16, 192, 0, 128)]
+                      (4, 2048, 16, 16, 192, 0, 128), (4, 2048, 36, 4, 128, 0),
+                      (4, 2048 + 256, 32, 32, 96, 0)]
 # the keywords the model never passes: (shape, causal, scale); small shapes,
 # then internlm2-1.8b's at S=4096, bf16 and f32 each
 FLASH_KEYWORD_CASES = [
@@ -909,8 +925,11 @@ FORWARD_LAUNCHES = {
 # f32 copy (63 GB) does not fit beside its bf16 weights (31 GB), so it keeps
 # its dense first layer and 3 of its 26 MoE layers; zamba2-7b keeps 4 of its
 # 13 groups (5 Mamba-2 blocks and the shared attention each) and its 3 last
-# Mamba-2 blocks, 27 of 81 layers, to keep the run under 700 s (PERF.md 4)
-F32_REPEATS = {"zamba2-7b": 4, "deepseek-v2-lite-16b": 3}
+# Mamba-2 blocks, 27 of 81 layers, to keep the run under 700 s; starcoder2-
+# 7b, phi-3-vision-4.2b and musicgen-medium 8 of their 32, 32 and 48 layers,
+# to keep it under 880 s with their training (PERF.md 4)
+F32_REPEATS = {"zamba2-7b": 4, "deepseek-v2-lite-16b": 3, "starcoder2-7b": 8,
+               "phi-3-vision-4.2b": 8, "musicgen-medium": 8}
 # at f32 the same layers launch the f32 flash, SSD and RWKV-6 kernels instead
 F32_KERNEL = {"flash_attention_wgmma": "flash_attention", "ssd_scan_mma": "ssd_scan",
               "rwkv6_scan_mma": "rwkv6_scan"}
@@ -920,9 +939,12 @@ F32_LAUNCHES = {
 }
 F32_LAUNCHES["zamba2-7b"] = {"ssd_scan": 5 * 4 + 3, "flash_attention": 4}
 F32_LAUNCHES["deepseek-v2-lite-16b"] = {"flash_attention": 1 + 3}
+F32_LAUNCHES.update({arch: {"flash_attention": F32_REPEATS[arch]}  # a layer a repeat
+                     for arch in ("starcoder2-7b", "phi-3-vision-4.2b", "musicgen-medium")})
 # requests, slots, max_len, prompt lengths, new tokens; an SSM model's first
 # prompt is the prefill prompt's first DECODE_LEN tokens (a chunk length its
-# kernels take), the prompt of its decode-vs-forward checks
+# kernels take), the prompt of its decode-vs-forward checks; "ticks", where
+# given, the profile window's ticks in place of PROFILE_TICKS
 SERVING = {
     "gemma3-1b": dict(requests=16, slots=8, max_len=1024, prompt=(16, 256), new=32, first=False),
     "zamba2-7b": dict(requests=8, slots=4, max_len=256, prompt=(16, 64), new=16, first=True),
@@ -932,12 +954,14 @@ SERVING = {
     "deepseek-v2-lite-16b": dict(requests=4, slots=4, max_len=256, prompt=(16, 64), new=16,
                                  first=False),
     # served as the MLA models are; the frontend models text-only, as the
-    # engine serves them in both packages
-    "starcoder2-7b": dict(requests=4, slots=4, max_len=256, prompt=(16, 64), new=16, first=False),
+    # engine serves them in both packages; windows of 2 ticks to keep the
+    # run under 880 s with their training (PERF.md 4)
+    "starcoder2-7b": dict(requests=4, slots=4, max_len=256, prompt=(16, 64), new=16, first=False,
+                          ticks=2),
     "phi-3-vision-4.2b": dict(requests=4, slots=4, max_len=256, prompt=(16, 64), new=16,
-                              first=False),
+                              first=False, ticks=2),
     "musicgen-medium": dict(requests=4, slots=4, max_len=256, prompt=(16, 64), new=16,
-                            first=False),
+                            first=False, ticks=2),
 }
 # Logit limits, each a share of the largest logit and 2-4x the gap read on
 # the H100 (PERF.md section 2; the noise of bf16 hidden states is absolute in
@@ -1099,6 +1123,15 @@ def plain_kernels():
         model_attention.flash_attention, ops.ssd_scan, ops.rwkv6_scan = saved
 
 
+# a profiler session may not record launches made in its first moments,
+# some or all of them (63 of 64 known launches in two chip_smoke runs on the
+# H100; scripts/torch_profiler_probe.py there: sessions that lost launches,
+# 3 of 800 with no pause or 1 ms, 1 of 700 with 5 ms, none of 300 with 20
+# ms; PERF.md section 6), so each window waits this long after its session
+# starts
+PROFILER_SETTLE_S = 0.02
+
+
 def profile_window(label: str, card: str, fn, *args, grids: dict | None = None,
                    expect_kernels: int | None = None) -> dict:
     """Where one window's time goes: ``torch.profiler`` kernel intervals on
@@ -1113,12 +1146,14 @@ def profile_window(label: str, card: str, fn, *args, grids: dict | None = None,
     whose name holds one. With ``expect_kernels`` the raw events must hold
     exactly that many device kernels, as many as the public event tree
     (``prof.events()``), with the same summed time: a PyTorch that drops or
-    doubles raw events fails there (``profiler_check``)."""
+    doubles raw events fails there (``profiler_check``). ``fn`` starts
+    PROFILER_SETTLE_S after the session does (outside the wall clock)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_SETTLE_S)
         t0 = time.perf_counter()
         fn(*args)
         torch.cuda.synchronize()
@@ -1175,13 +1210,6 @@ def profiler_check(device, card) -> None:
         for _ in range(PROFILER_CHECK_KERNELS):
             x.add_(1.0)
 
-    # the process's first profiler session may miss a launch while CUPTI
-    # starts (63 of 64 recorded, once, on the H100): one window is profiled
-    # and discarded first, as torch.profiler's schedule warms up before it
-    # records
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
-        adds()
-        torch.cuda.synchronize()
     profile_window("profiler check", card, adds, expect_kernels=PROFILER_CHECK_KERNELS)
 
 
@@ -1382,8 +1410,9 @@ def serving_phase(arch: str, cfg, params, device, card) -> dict:
     for r in requests[: spec["slots"]]:
         eng.submit(Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens))
     eng.tick()  # admit
-    profile_window(f"{arch} serving, {PROFILE_TICKS} ticks", card,
-                   lambda: [eng.tick() for _ in range(PROFILE_TICKS)])
+    ticks = spec.get("ticks", PROFILE_TICKS)
+    profile_window(f"{arch} serving, {ticks} ticks", card,
+                   lambda: [eng.tick() for _ in range(ticks)])
     log(f"[time] {arch} serving profile window {time.perf_counter() - t0:.1f} s")
     return paths
 
@@ -1558,10 +1587,12 @@ GRAD_FLASH_SHAPES = [
 # the other training runs' attention at B=4, S=2048, causal at the window the
 # model passes only: gemma3-1b's windowed and global layers, zamba2-7b's
 # shared attention, musicgen-medium's (2048 tokens after 64 embeddings),
-# minicpm3-4b's and deepseek-v2-lite-16b's MLA
+# minicpm3-4b's and deepseek-v2-lite-16b's MLA, starcoder2-7b's group of 9
+# and phi-3-vision-4.2b's D=96 (2048 tokens after 256 embeddings)
 GRAD_FLASH_TRAIN = [(4, 2048, 4, 1, 256, 256, 512), (4, 2048, 4, 1, 256, 256, 0),
                     (4, 2048, 32, 32, 112, 112, 0), (4, 2048 + 64, 24, 24, 64, 64, 0),
-                    (4, 2048, 40, 40, 96, 64, 0), (4, 2048, 16, 16, 192, 128, 0)]
+                    (4, 2048, 40, 40, 96, 64, 0), (4, 2048, 16, 16, 192, 128, 0),
+                    (4, 2048, 36, 4, 128, 128, 0), (4, 2048 + 256, 32, 32, 96, 96, 0)]
 # the scans at tests/test_kernels.py's cases, the models' heads at S=4096 and
 # at the training batch (zamba2-7b's, rwkv6-3b's)
 GRAD_SSD_SHAPES = [*SSD_CASES[:4], SSD_MODEL[1], SSD_TRAIN]
@@ -1615,8 +1646,8 @@ class TrainRun:
 # layers at D=256 (22 windowed at 512, 4 global); musicgen-medium: 48 flash
 # layers at D=64 over its 64 frontend embeddings and 2048 tokens, an ungated
 # MLP (its limits 2-4x what the H100 read from seed 0: loss and gradient-
-# norm gaps 1.04e-4 and 4.65e-4, spread 1.082; PERF.md section 2); zamba2-7b:
-# its full state
+# norm gaps 1.04e-4 and 4.65e-4, spread 1.082; PERF.md section 2; its entry
+# point 2 steps, cut from 3 for the run's time); zamba2-7b: its full state
 # (91 GB) does not fit one card, so 4 of its 13 groups (5 Mamba-2 blocks and
 # the shared attention at D=112 each) and its 3 last Mamba-2 blocks, 27 of 81
 # layers (the f32 checks' cut, F32_REPEATS); the JAX driver has no depth
@@ -1643,20 +1674,29 @@ class TrainRun:
 # parameters go to the host before the kernel step (HOST_PLAIN_SHARE).
 # deepseek-v2-lite-16b: its full state (188 GB) does not fit one card, so
 # its dense first layer and 3 of its 26 MoE layers (the f32 checks' cut,
-# F32_REPEATS), 4 MLA layers at (192, 128), and no entry point; the kernel and plain steps route alike (Routing), once
-# at TrainConfig() and once, from a fresh state, with two microbatches and
-# the MTP head (MOE_TRAIN_CFG). Limits 2-4x what the H100 read from seed 0
-# (PERF.md section 2): minicpm3-4b's loss and gradient-norm gaps 9.58e-5
-# and 8.08e-4, spread 1.136; deepseek-v2-lite-16b's, the larger of its two
-# comparisons, 6.72e-6 and 1.85e-4, spread 1.038, and its kernel step's
-# own router differed in 3.51% of the choices (10,360 of 294,912)
+# F32_REPEATS), 4 MLA layers at (192, 128), and no entry point; the kernel
+# and plain steps route alike (Routing), once at TrainConfig() and once,
+# from a fresh state, with two microbatches and the MTP head
+# (MOE_TRAIN_CFG). phi-3-vision-4.2b: 32 flash layers at D = Dv = 96 over
+# its 256 frontend embeddings and 2048 tokens, full depth; its state and
+# three copies of the parameters (61.1 GB) stay within HOST_PLAIN_SHARE of
+# the card. starcoder2-7b: its full state and gradients (89 GB) do not fit
+# one card, so 12 of its 32 layers (n_pattern_repeats 32 -> 12), a GQA
+# group of 9 (36/4 heads of D=128), and no entry point, as for zamba2-7b.
+# Limits 2-4x what the H100 read from seed 0 (PERF.md section 2):
+# minicpm3-4b's loss and gradient-norm gaps 9.58e-5 and 8.08e-4, spread
+# 1.136; deepseek-v2-lite-16b's, the larger of its two comparisons, 6.72e-6
+# and 1.85e-4, spread 1.038, and its kernel step's own router differed in
+# 3.51% of the choices (10,360 of 294,912); phi-3-vision-4.2b's 1.67e-5 and
+# 6.67e-4, spread 1.144; starcoder2-7b's 7.50e-6 and 1.63e-4, spread 1.142
 MOE_TRAIN_CFG = TrainConfig(microbatches=2, mtp_weight=0.3)
 # the comparison moves the plain step's updated parameters to the host
 # before the kernel step where the state and three copies of the parameters
 # (the plain copy, both paths' gradients) would take more than this share of
-# the card: minicpm3-4b's 68 GB of 80 (with its plain gradients on the host
-# too its comparison peaked at 66.5 GB); the other runs' 16-46 GB stay on the
-# card (rwkv6-3b's 46 GB peaked at 64.3)
+# the card (85.0e9 bytes on the H100 80GB HBM3, so 63.8 GB): minicpm3-4b's
+# 68.2 GB (with its plain gradients on the host too its comparison peaked at
+# 66.5 GB); the other runs' 16-61 GB stay on the card (rwkv6-3b's 46 GB
+# peaked at 64.3, phi-3-vision-4.2b's 61.1 GB at 67.0)
 HOST_PLAIN_SHARE = 0.75
 TRAIN_RUNS = {
     TRAIN_ARCH: TrainRun(TRAIN_LAUNCHES, TRAIN_LIMITS, TRAIN_STEPS, loss_falls=True),
@@ -1665,7 +1705,7 @@ TRAIN_RUNS = {
     "gemma3-1b": TrainRun({"flash_attention_wgmma": 52},
                           {"loss": 5e-6, "grad_norm": 1.5e-5, "spread": 1.0}, 3),
     "musicgen-medium": TrainRun({"flash_attention_wgmma": 96},
-                                {"loss": 3e-4, "grad_norm": 1.5e-3, "spread": 2.5}, 3),
+                                {"loss": 3e-4, "grad_norm": 1.5e-3, "spread": 2.5}, 2),
     "zamba2-7b": TrainRun({"ssd_scan_mma": 46, "flash_attention_wgmma": 8},
                           {"loss": 1.5e-4, "grad_norm": 1.2e-3, "spread": 2.0}, 0, repeats=4),
     "minicpm3-4b": TrainRun({"flash_attention_wgmma": 124},
@@ -1674,6 +1714,10 @@ TRAIN_RUNS = {
         {"flash_attention_wgmma": 8},
         {"loss": 2e-5, "grad_norm": 6e-4, "spread": 2.5, "route_flips": 0.1}, 0, repeats=3,
         train_cfgs=(TrainConfig(), MOE_TRAIN_CFG)),
+    "phi-3-vision-4.2b": TrainRun({"flash_attention_wgmma": 64},
+                                  {"loss": 5e-5, "grad_norm": 2e-3, "spread": 2.5}, 2),
+    "starcoder2-7b": TrainRun({"flash_attention_wgmma": 24},
+                              {"loss": 2e-5, "grad_norm": 5e-4, "spread": 2.5}, 0, repeats=12),
 }
 
 
@@ -2082,7 +2126,7 @@ def kernel_vs_plain_step(arch: str, device, card,
            "largest_grad_gap_share": grad_gap, "at": grad_at,
            "largest_param_gap": param_gap, "param_gap_over_lr": param_gap / k_metrics["lr"],
            "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
-           "state_gb": state_bytes / 1e9, "moe": moe,
+           "state_gb": state_bytes / 1e9, "plain_params_on_host": host_plain, "moe": moe,
            "launches": {k: k_counts[k] for k in launches}, "seconds": laps}
     if "mtp_ce" in k_metrics:
         rec["mtp_ce"] = {"kernel": k_metrics["mtp_ce"], "plain": p_metrics["mtp_ce"]}
@@ -2387,14 +2431,18 @@ def scan_record(name: str, timings: list[dict], launches: int, by_path: dict,
 # phase 10: the scheduler's program stream through the kernel and the plain version
 # ---------------------------------------------------------------------------
 class CapturingEngine(JRBAEngine):
-    """Records every (net, flows, capacity) solve request it serves."""
+    """Records every (net, flows, capacity) solve request it serves, and in
+    ``seeds`` the scenario seed (``seed``, set by the caller) it served."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.captured: list = []
+        self.seeds: list = []
+        self.seed = None
 
     def _record(self, net, flows, capacity):
         self.captured.append((net, list(flows), None if capacity is None else capacity.copy()))
+        self.seeds.append(self.seed)
 
     def solve(self, net, flows, *, capacity=None, **kwargs):
         self._record(net, flows, capacity)
@@ -2408,16 +2456,19 @@ class CapturingEngine(JRBAEngine):
         return super().solve_many(net, flow_sets, capacities=capacities, **kwargs)
 
 
-def capture_stream(device, solver, *, seeds=(0, 1), n_jobs=8, n_iters=STREAM_ITERS) -> list:
+def capture_stream(device, solver, *, seeds=(0, 1), n_jobs=8,
+                   n_iters=STREAM_ITERS) -> tuple[list, list]:
+    """The programs the scheduler solves, and each one's scenario seed."""
     eng = CapturingEngine(k=K, n_iters=n_iters, solver=solver, device=device)
     for name in sorted(SCENARIOS):
         for seed in seeds:
+            eng.seed = seed
             for policy in ("OTFS", "OTFA"):
                 net, arrivals = SCENARIOS[name].build(seed=seed, n_jobs=n_jobs)
                 OnlineScheduler(net, policy, k_paths=K, jrba_iters=n_iters, engine=eng).run(
                     arrivals
                 )
-    return eng.captured
+    return eng.captured, eng.seeds
 
 
 def replay_single(eng: JRBAEngine, stream: list) -> tuple[list, list[int]]:
@@ -2597,10 +2648,14 @@ def kernel_record(eng: JRBAEngine, stream: list, groups: list[list[int]], device
 
 
 def stream_phase(device, kernel_solver: str, plain_solver: str, *, seeds, n_jobs) -> tuple:
-    """Returns the kernel's record and the launches of each kernel path."""
+    """Returns the kernel's record and the launches of each kernel path. The
+    kernel replays every program singly and in batches, the plain version
+    the batches and, singly, the first seed's programs only: its single
+    replay of all of them took 120.8-140.8 s of a run that must stay under
+    880 s (PERF.md section 4)."""
     launches = {}
     t0 = time.perf_counter()
-    stream, launches["scheduler"] = counted(
+    (stream, seed_of), launches["scheduler"] = counted(
         "scheduler (OnlineScheduler.run, OTFS+OTFA, 12 scenarios)", True,
         capture_stream, device, kernel_solver, seeds=seeds, n_jobs=n_jobs,
     )
@@ -2612,18 +2667,21 @@ def stream_phase(device, kernel_solver: str, plain_solver: str, *, seeds, n_jobs
         f"stream single ({kernel_solver})", True, replay_single, ek, stream
     )
     tk = time.perf_counter() - t0
+    plain = [i for i, seed in enumerate(seed_of) if seed == seeds[0]]
     t0 = time.perf_counter()
     (single_p, steps_p), _ = counted(
-        f"stream single ({plain_solver})", False, replay_single, ep, stream
+        f"stream single ({plain_solver}), seed {seeds[0]}'s programs", False, replay_single, ep,
+        [stream[i] for i in plain]
     )
     tp = time.perf_counter() - t0
-    gap1 = compare("single", single_k, single_p)
+    gap1 = compare("single", [single_k[i] for i in plain], single_p)
     relaxed = sum(1 for s in steps_k if s)
-    n_diff = sum(1 for a, b in zip(steps_k, steps_p) if a != b)
+    n_diff = sum(1 for i, b in zip(plain, steps_p) if steps_k[i] != b)
     log(
         f"[stream] single: {len(stream)} programs ({relaxed} relaxed, "
-        f"{ek.stats.fast_path_solves} fast-path) identical records; worst relaxed-span "
-        f"gap {gap1:.3g}; steps differ on {n_diff}; replay {tk:.2f} s kernel, {tp:.2f} s plain"
+        f"{ek.stats.fast_path_solves} fast-path), {len(plain)} of them (seed {seeds[0]}'s) on "
+        f"both: identical records; worst relaxed-span gap {gap1:.3g}; steps differ on "
+        f"{n_diff}; replay {tk:.2f} s kernel (all), {tp:.2f} s plain"
     )
     groups = batch_groups(ek, stream)
     batch_k, launches["stream_batched"] = counted(

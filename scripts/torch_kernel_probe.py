@@ -292,7 +292,7 @@ def jrba_probe(device, seeds: tuple, variants: bool) -> dict:
     and the most common batch through the port's plan, its block and its
     general instance and, with ``variants``, the diagnostic builds."""
     t0 = time.perf_counter()
-    stream = cs.capture_stream(device, "cuda", seeds=seeds, n_jobs=8)
+    stream, _ = cs.capture_stream(device, "cuda", seeds=seeds, n_jobs=8)
     print(f"[jrba] captured {len(stream)} programs in {time.perf_counter() - t0:.1f} s",
           flush=True)
     eng = JRBAEngine(k=cs.K, n_iters=cs.STREAM_ITERS, solver="cuda", device=device)

@@ -74,15 +74,18 @@ def _close(got, want, names, nan_fixed: bool = False):
                                    atol=share * float(np.abs(w[finite]).max(initial=0.0)))
 
 
-@pytest.mark.parametrize("case", ATTN_CASES)
-def test_attention_gradient_matches_jax_twin(case):
-    B, S, H, KH, D, window, _, _ = case
+def _attention_matches(B, S, H, KH, D, window, chunk):
     arrays = _arrays([(B, S, H, D), (B, S, KH, D), (B, S, KH, D)], S + H + D, ["n"] * 3)
     cot = _arrays([(B, S, H, D)], 1, ["n"])[0]
-    kw = dict(window=window, chunk=64)
+    kw = dict(window=window, chunk=chunk)
     want = _jax_grads(lambda q, k, v: jattn.blockwise_attention(q, k, v, **kw), arrays, cot)
     got = _torch_grads(lambda q, k, v: fa.blockwise_attention(q, k, v, **kw), arrays, cot)
     _close(got, want, "qkv")
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_gradient_matches_jax_twin(case):
+    _attention_matches(*case[:6], chunk=64)
 
 
 @pytest.mark.parametrize("case", SSD_CASES)
@@ -94,6 +97,20 @@ def test_ssd_gradient_matches_jax_twin(case):
     want = _jax_grads(lambda *a: jssm.ssd_chunked(*a, chunk=chunk)[0], arrays, cot)
     got = _torch_grads(lambda *a: ssd.ssd_chunked(*a, chunk=chunk)[0], arrays, cot)
     _close(got, want, ["x", "dt", "A", "B", "C"], nan_fixed=True)
+
+
+# the structure of two training shapes chip_smoke runs at B=4, S=2048, at a
+# small size (B, S, H, KH, D, window), each with a chunk that divides S:
+# starcoder2-7b's GQA group of 9 (36/4 heads of D=128), and phi-3-vision-
+# 4.2b's D = Dv = 96 over its frontend embeddings and tokens (8 + 128 rows
+# here, 256 + 2048 there), which 64 does not divide: four chunks of 34 (the
+# model's 2304 rows take three of 768; chunks of 8 cost 7 s of JAX compile)
+TRAIN_ATTN_CASES = [((1, 128, 18, 2, 16, 0), 64), ((1, 136, 4, 4, 96, 0), 34)]
+
+
+@pytest.mark.parametrize("case,chunk", TRAIN_ATTN_CASES)
+def test_training_attention_gradient_matches_jax_twin(case, chunk):
+    _attention_matches(*case, chunk=chunk)
 
 
 # chunks of 16 whose decays sum past f32's exp range: dt 1.5-2.5 and A

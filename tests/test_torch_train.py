@@ -103,7 +103,8 @@ def bf16_step_matches(arch: str, in_jax=contextlib.nullcontext,
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b-smoke", "gemma3-1b-smoke", "rwkv6-3b-smoke",
-                                  "zamba2-7b-smoke", "musicgen-medium-smoke"])
+                                  "zamba2-7b-smoke", "starcoder2-7b-smoke",
+                                  "phi-3-vision-4.2b-smoke", "musicgen-medium-smoke"])
 def test_bf16_step_matches_reference(arch):
     """bf16 matrices (norms f32): loss, CE and the gradient norm within the
     port's bf16 logit tolerance (rtol 2e-2, ``test_torch_models.bf16_tol``),
@@ -187,7 +188,8 @@ def kernel_layers(cfg) -> dict:
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b-smoke", "gemma3-1b-smoke", "rwkv6-3b-smoke",
-                                  "zamba2-7b-smoke", "musicgen-medium-smoke",
+                                  "zamba2-7b-smoke", "starcoder2-7b-smoke",
+                                  "phi-3-vision-4.2b-smoke", "musicgen-medium-smoke",
                                   "minicpm3-4b-smoke", "deepseek-v2-lite-16b-smoke"])
 def test_step_reaches_each_kernel_twice_a_layer(arch, monkeypatch):
     """A train step with remat calls each kernel's wrapper twice for every
@@ -219,14 +221,19 @@ def test_full_width_runs_kernel_layers():
     zamba2-7b cut to 4 of its 13 groups and its 3 last blocks: 23 Mamba-2
     and 4 uses of the shared attention, and musicgen-medium 48 attention
     (an ungated MLP, 64 frontend embeddings), minicpm3-4b 62 MLA attention
-    at (96, 64), and deepseek-v2-lite-16b cut to its dense layer and 3 of
-    its 26 MoE layers: 4 MLA attention at (192, 128); with the parameter
-    counts the training state follows from."""
+    at (96, 64), deepseek-v2-lite-16b cut to its dense layer and 3 of
+    its 26 MoE layers: 4 MLA attention at (192, 128), phi-3-vision-4.2b 32
+    attention at (96, 96) after 256 frontend embeddings, and starcoder2-7b
+    cut to 12 of its 32 layers: 12 attention with a GQA group of 9 (36/4
+    heads) and an ungated MLP; with the parameter counts the training state
+    follows from."""
     rwkv, gemma = get_config("rwkv6-3b"), get_config("gemma3-1b")
     zamba = dataclasses.replace(get_config("zamba2-7b"), n_pattern_repeats=4)
     music = get_config("musicgen-medium")
     mini = get_config("minicpm3-4b")
     deep = dataclasses.replace(get_config("deepseek-v2-lite-16b"), n_pattern_repeats=3)
+    phi = get_config("phi-3-vision-4.2b")
+    star = dataclasses.replace(get_config("starcoder2-7b"), n_pattern_repeats=12)
     assert kernel_layers(rwkv) == {"rwkv6": 32}
     assert kernel_layers(gemma) == {"flash": 26}
     assert sum(b.window == 512 for b in gemma.blocks) == 22
@@ -238,9 +245,14 @@ def test_full_width_runs_kernel_layers():
     assert kernel_layers(deep) == {"flash": 4} and deep.n_layers == 4
     assert [b.mlp for b in deep.blocks] == ["dense", "moe", "moe", "moe"]
     assert deep.head_dim + deep.qk_rope_head_dim == 192 and deep.v_head_dim == 128
-    assert [c.param_count() for c in (rwkv, gemma, zamba, music, mini, deep)] == [
+    assert kernel_layers(phi) == {"flash": 32} and phi.frontend_tokens == 256
+    assert phi.head_dim == 96 and phi.n_heads == phi.n_kv_heads == 32
+    assert kernel_layers(star) == {"flash": 12} and star.n_layers == 12
+    assert star.n_heads == 9 * star.n_kv_heads == 36 and star.head_dim == 128
+    assert not star.mlp_gated
+    assert [c.param_count() for c in (rwkv, gemma, zamba, music, mini, deep, phi, star)] == [
         2_863_516_160, 999_812_736, 2_690_678_832, 1_365_394_944, 4_261_902_848,
-        2_254_983_168]
+        2_254_983_168, 3_821_079_552, 3_057_762_816]
 
 
 # the models chip_smoke prefills and serves at full width, one at a time

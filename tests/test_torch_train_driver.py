@@ -39,7 +39,8 @@ def jax_init(cfg, opt_cfg, generator=0, *, train_cfg=None, device="cuda"):
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b-smoke", "gemma3-1b-smoke", "rwkv6-3b-smoke",
-                                  "zamba2-7b-smoke", "musicgen-medium-smoke"])
+                                  "zamba2-7b-smoke", "starcoder2-7b-smoke",
+                                  "phi-3-vision-4.2b-smoke", "musicgen-medium-smoke"])
 def test_driver_matches_reference_driver(arch, monkeypatch, capsys):
     """Four bf16 steps at the drivers' defaults (batch 8, seq 128, lr 3e-3):
     the first loss within the port's bf16 logit tolerance (rtol 2e-2); the
