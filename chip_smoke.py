@@ -304,6 +304,8 @@ from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import decode_step, forward, init_cache, init_params, prefill  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.layers import gelu_tanh, mlp_apply, silu  # noqa: E402
 from repro_torch.models.moe import moe_capacity  # noqa: E402
 from repro_torch.models.transformer import pick_chunk  # noqa: E402
 from repro_torch.optim import AdamWConfig, apply_updates  # noqa: E402
@@ -641,13 +643,18 @@ PREFILL_SHAPES = [(1, 32768, 4, 1, 256, 512), (1, 32768, 4, 1, 256, 0)]
 # and f32) and at the S=32768 of its prefill (bf16)
 ZAMBA_FLASH_SHAPES = [(1, 4096, 32, 32, 112, 0), (1, 32768, 32, 32, 112, 0)]
 # MLA's prefill attention, (B, S, H, KH, D, window, Dv): minicpm3-4b (40
-# heads, D = 64 + 32, Dv = 64) and deepseek-v2-lite-16b (16 heads, D = 128 +
-# 64, Dv = 128), global and causal with the scale D**-0.5; at S=4096 in both
-# types and at the S=32768 of their prefills in bf16
+# heads, D = 64 + 32, Dv = 64), deepseek-v2-lite-16b (16 heads, D = 128 +
+# 64, Dv = 128) and deepseek-v3-671b (128 heads, the same dims), global and
+# causal with the scale D**-0.5; at S=4096 in both types and at the S=32768
+# of their prefills in bf16
 MLA_FLASH_SHAPES = {
     "minicpm3-4b": [(1, 4096, 40, 40, 96, 0, 64), (1, 32768, 40, 40, 96, 0, 64)],
     "deepseek-v2-lite-16b": [(1, 4096, 16, 16, 192, 0, 128), (1, 32768, 16, 16, 192, 0, 128)],
+    "deepseek-v3-671b": [(1, 4096, 128, 128, 192, 0, 128), (1, 32768, 128, 128, 192, 0, 128)],
 }
+# shapes whose plain version runs once, for the comparison, and is not
+# timed: deepseek-v3-671b's S=32768 attention, about 2.4 s a plain call
+PLAIN_UNTIMED = {MLA_FLASH_SHAPES["deepseek-v3-671b"][1]}
 # the GQA prefills of starcoder2-7b (36 query heads over 4 kv heads: a group
 # of 9, D=128), phi-3-vision-4.2b (32/32 heads of D=96) and musicgen-medium
 # (24/24 of D=64), causal with the scale D**-0.5: at S=4096 in both types and
@@ -715,7 +722,7 @@ def flash_case(shape, dtype, device, reps: int, causal: bool = True,
     lib_err = float((lib.float() - want.float()).abs().max())
     del lib
     ms = time_call(fa.flash_attention_hsd, (q, k, v), kw, reps=reps)
-    plain_ms = time_call(
+    plain_ms = None if shape in PLAIN_UNTIMED else time_call(
         fa.flash_attention_plain, (q, k, v), dict(kw, chunk=chunk), reps=max(1, reps // 3)
     )
     library_ms = time_call(library_attention, (q, k, v, window, causal, scale), {},
@@ -919,15 +926,29 @@ FORWARD_LAUNCHES = {
     "starcoder2-7b": {"flash_attention_wgmma": 32},  # GQA 36/4 (a group of 9), ungated MLP
     "phi-3-vision-4.2b": {"flash_attention_wgmma": 32},  # 32/32 at D=96, 256 frontend embeds
     "musicgen-medium": {"flash_attention_wgmma": 48},  # 24/24 at D=64, ungated, 64 embeds
+    # MLA at 128 heads, (192, 128), with a q LoRA; 3 dense layers, then 1 MoE
+    # layer of 256 experts, top-8 (PREFILL_REPEATS)
+    "deepseek-v3-671b": {"flash_attention_wgmma": 4},
 }
+# the prefill's depth, pattern repeats kept at full width, where the whole
+# model does not fit one card: deepseek-v3-671b keeps its 3 dense layers and
+# 1 of its 58 MoE layers (15,111,101,440 parameters, 30.2 GB in bf16); a
+# second MoE layer would bring 11.3e9 more (53.2 GB before activations),
+# and the S=32768 dispatch buffers take 4.7 GB each
+PREFILL_REPEATS = {"deepseek-v3-671b": 1}
 # the f32 checks' depth, pattern repeats kept at full width, where the full
-# depth does not fit or does not fit the run's time: deepseek-v2-lite-16b's
-# f32 copy (63 GB) does not fit beside its bf16 weights (31 GB), so it keeps
-# its dense first layer and 3 of its 26 MoE layers; zamba2-7b keeps 4 of its
-# 13 groups (5 Mamba-2 blocks and the shared attention each) and its 3 last
-# Mamba-2 blocks, 27 of 81 layers, to keep the run under 700 s; starcoder2-
-# 7b, phi-3-vision-4.2b and musicgen-medium 8 of their 32, 32 and 48 layers,
-# to keep it under 880 s with their training (PERF.md 4)
+# depth did not fit or does not fit the run's time: deepseek-v2-lite-16b
+# keeps its dense first layer and 3 of its 26 MoE layers (its f32 copy, 63
+# GB, did not fit beside its bf16 weights, 31 GB; upcast in place it would,
+# and the cut keeps the run's time); zamba2-7b keeps 4 of its 13 groups (5
+# Mamba-2 blocks and the shared attention each) and its 3 last Mamba-2
+# blocks, 27 of 81 layers, to keep the run under 700 s; starcoder2-7b,
+# phi-3-vision-4.2b and musicgen-medium 8 of their 32, 32 and 48 layers, to
+# keep it under 880 s with their training (PERF.md 4). deepseek-v3-671b
+# keeps all 4 layers of its prefill cut: its f32 copy (60.4 GB) does not fit
+# beside its bf16 weights (30.2 GB), so f32_phase runs after serving and
+# upcasts the weights in place, leaf by leaf (peak 66.06 GB on the H100);
+# fewer layers would drop its one MoE layer, the layer the check is for
 F32_REPEATS = {"zamba2-7b": 4, "deepseek-v2-lite-16b": 3, "starcoder2-7b": 8,
                "phi-3-vision-4.2b": 8, "musicgen-medium": 8}
 # at f32 the same layers launch the f32 flash, SSD and RWKV-6 kernels instead
@@ -962,6 +983,8 @@ SERVING = {
                               first=False, ticks=2),
     "musicgen-medium": dict(requests=4, slots=4, max_len=256, prompt=(16, 64), new=16,
                             first=False, ticks=2),
+    "deepseek-v3-671b": dict(requests=4, slots=4, max_len=256, prompt=(16, 64), new=16,
+                             first=False, ticks=2),
 }
 # Logit limits, each a share of the largest logit and 2-4x the gap read on
 # the H100 (PERF.md section 2; the noise of bf16 hidden states is absolute in
@@ -977,11 +1000,16 @@ SERVING = {
 # runs of a check take the same expert choices (Routing); "route_flips" is
 # the share of choices its second run's own router may make otherwise
 # (deepseek-v2-lite-16b's random routers are near-uniform: 8.7% at bf16,
-# none at f32). A frontend model (phi-3-vision-4.2b, musicgen-medium) has no
-# decode-vs-forward check (its text-only decode has not seen the frontend
-# prefix its forward takes; tests/test_arch_smoke.py skips that parity), so
-# no "decode" or "flips": "decode_f32" holds its f32 forwards, kernel against
-# plain, at every position.
+# none at f32; deepseek-v3-671b's 6.7%, and 1 of 32,768 at f32). "ties":
+# the S=4096 prefill check's one position may change its top-1 token where
+# the plain path scores the kernel path's token within the "prefill" limit
+# of its own (deepseek-v3-671b: a logit spread of 355 over 129,280 tokens
+# puts its top two 0.228 apart, under the bf16 gap of 2.43). A frontend
+# model (phi-3-vision-4.2b, musicgen-medium) has no decode-vs-forward check
+# (its text-only decode has not seen the frontend prefix its forward takes;
+# tests/test_arch_smoke.py skips that parity), so no "decode" or "flips":
+# "decode_f32" holds its f32 forwards, kernel against plain, at every
+# position.
 LIMITS = {
     "gemma3-1b": dict(prefill=1e-3, decode=1e-3, flips=1, prefill_f32=4e-7, decode_f32=3e-6),
     "zamba2-7b": dict(prefill=0.12, decode=0.13, flips=10, prefill_f32=3e-5, decode_f32=3e-5),
@@ -992,6 +1020,8 @@ LIMITS = {
     "starcoder2-7b": dict(prefill=0.04, decode=0.05, flips=2, prefill_f32=5e-6, decode_f32=4e-6),
     "phi-3-vision-4.2b": dict(prefill=0.05, prefill_f32=1e-5, decode_f32=8e-6),
     "musicgen-medium": dict(prefill=0.03, prefill_f32=3e-6, decode_f32=2e-6),
+    "deepseek-v3-671b": dict(prefill=0.02, decode=0.025, flips=4, prefill_f32=5e-6,
+                             decode_f32=1e-5, route_flips=0.2, ties=True),
 }
 DECODE_LEN = 64  # the f32 decode-vs-forward prompt
 # ticks of each serving phase's profile window: 4, cut from 24 and then 8 to
@@ -1103,6 +1133,90 @@ class Routing:
         log(f"[routing] {label}: {self.flips} of {self.total} expert choices differ ({share:.3g}, "
             f"limit {limit})")
         assert share <= limit, f"{label}: {share} of the expert choices differ"
+
+
+# the MoE check's tolerance against its per-expert reference: bf16's, as
+# tests/test_torch_moe.py holds moe_apply to the JAX package's
+MOE_TOL = 2e-2
+
+
+class MoeCapture:
+    """A MoE model's dispatch in one run: every MoE layer's destinations
+    (``_dispatch_group``'s dst; the overflow row E*C marks a dropped
+    choice) and the first layer's parameters, input, expert choices and
+    output. The port's functions run unchanged; the capture keeps
+    references only."""
+
+    def __init__(self):
+        self.dst: list = []
+        self.first: dict = {}
+
+    @contextlib.contextmanager
+    def capture(self):
+        apply, dispatch = moe_mod.moe_apply, moe_mod._dispatch_group
+
+        def dispatching(x, topi, C, cfg):
+            out = dispatch(x, topi, C, cfg)
+            self.dst.append((out[1], cfg.n_experts * C))
+            if "topi" not in self.first:
+                self.first.update(topi=topi, C=C)
+            return out
+
+        def applying(p, cfg, x):
+            y, aux = apply(p, cfg, x)
+            if "x" not in self.first:
+                self.first.update(p=p, x=x, y=y)
+            return y, aux
+
+        moe_mod.moe_apply, moe_mod._dispatch_group = applying, dispatching
+        try:
+            yield
+        finally:
+            moe_mod.moe_apply, moe_mod._dispatch_group = apply, dispatch
+
+    def check(self, label: str, cfg, dropped_frac: float) -> None:
+        """The run's ``moe_dropped_frac`` (summed over the layers) equals the
+        dropped share of the destinations the dispatch returned; and the
+        first layer's output equals a per-expert reference on the same input
+        and expert choices: each expert takes its choosers in the dispatch's
+        order (first choices in token order, then second choices, ...), its
+        first C, through plain matrix products, and the gated outputs are
+        summed into their tokens (``index_add_``). Its kept choices must be
+        the dispatch's exactly. At S=32768 deepseek-v3-671b's buffer passes
+        2**31 elements (327,681 rows of 7168): this holds the port's scatter,
+        views and gathers there against indexing that never builds it."""
+        shares = [float((dst == overflow).sum()) / dst.numel() for dst, overflow in self.dst]
+        f = self.first
+        p, x, y, topi, C = f["p"], f["x"][0], f["y"][0], f["topi"][0], f["C"]
+        E, k = cfg.n_experts, cfg.top_k
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        gates = probs.gather(-1, topi)
+        gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+        want = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        kept = torch.zeros(topi.shape, dtype=torch.bool, device=x.device)
+        for e in range(E):
+            j, t = (topi.T == e).nonzero(as_tuple=True)  # choice-major, then token order
+            j, t = j[:C], t[:C]
+            kept[t, j] = True
+            xe = x[t]
+            up = xe @ p["w_up"][e]
+            h = silu(xe @ p["w_gate"][e]) * up if "w_gate" in p else gelu_tanh(up)
+            want.index_add_(0, t, (h @ p["w_down"][e]).float() * gates[t, j, None])
+        want = want.to(x.dtype)
+        if "shared" in p:
+            want = want + mlp_apply(p["shared"], x)
+        dst, overflow = self.dst[0]
+        out = {"layers": len(shares), "buffer_elements": (overflow + 1) * x.shape[-1],
+               "dropped_frac": sum(shares), "aux_dropped_frac": dropped_frac,
+               "first_layer_dropped": shares[0],
+               "kept_equal": bool(torch.equal(kept, dst[0] != overflow)),
+               "limit_ratio": row_limit_ratio(y, want, MOE_TOL)}
+        log(f"[moe] {label}: {json.dumps(out)}")
+        assert np.isfinite(dropped_frac), f"{label}: moe_dropped_frac {dropped_frac}"
+        assert abs(dropped_frac - out["dropped_frac"]) <= 1e-5 * max(1.0, len(shares)), (
+            f"{label}: moe_dropped_frac {dropped_frac}, the dispatch dropped {out['dropped_frac']}")
+        assert out["kept_equal"], f"{label}: the dispatch kept other choices than the reference"
+        assert out["limit_ratio"] <= 1.0, f"{label}: MoE output off its reference: {out}"
 
 
 @contextlib.contextmanager
@@ -1221,14 +1335,23 @@ def gap_share(label: str, got, want) -> float:
     return share
 
 
-def logits_close(label: str, got, want, atol: float, min_top1: float) -> dict:
+def logits_close(label: str, got, want, atol: float, min_top1: float,
+                 ties: bool = False) -> dict:
     """Logits within ``atol`` of the largest logit, with the same top-1 token
-    at a share of at least ``min_top1`` of the positions."""
+    at a share of at least ``min_top1`` of the positions. ``top1_gap`` is
+    the largest amount by which ``want`` scores ``got``'s top-1 token under
+    its own; with ``ties`` a position whose top-1 differs by no more than
+    the logit limit is a near-tie, and agrees."""
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
-    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    gap = want.amax(-1) - want.gather(-1, got.argmax(-1, keepdim=True))[..., 0]
+    same = got.argmax(-1) == want.argmax(-1)
+    if ties:
+        same |= gap <= atol * scale
+    top1 = float(same.float().mean())
     out = {"max_abs_err": err, "max_abs_logit": scale, "gap_share": err / scale,
-           "atol": atol * scale, "top1_agree": top1, "min_top1": min_top1}
+           "atol": atol * scale, "top1_agree": top1, "min_top1": min_top1,
+           "top1_gap": float(gap.max()), "ties": ties}
     log(f"[{label}] {json.dumps(out)}")
     assert err <= atol * scale, f"{label}: logits differ by {err} > {atol * scale}"
     assert top1 >= min_top1, f"{label}: top-1 agreement {top1} < {min_top1}"
@@ -1268,6 +1391,12 @@ def prefill_phase(arch: str, device, card) -> tuple:
     the plain path's logits at S=4096. A frontend model's S counts its
     frontend embeddings (``backbone_inputs``)."""
     cfg = get_config(arch)
+    reduced = None
+    if arch in PREFILL_REPEATS:  # full width, the first pattern repeats only
+        cut = dataclasses.replace(cfg, n_pattern_repeats=PREFILL_REPEATS[arch])
+        reduced = {"layers": [cfg.n_layers, cut.n_layers],
+                   "n_pattern_repeats": [cfg.n_pattern_repeats, cut.n_pattern_repeats]}
+        cfg = cut
     expect = FORWARD_LAUNCHES[arch]
     t0 = time.perf_counter()
     params = init_params(cfg, SEED, device=device)
@@ -1275,10 +1404,16 @@ def prefill_phase(arch: str, device, card) -> tuple:
     n_params = sum(t.numel() for t in tree_leaves(params))
     assert n_params == cfg.param_count(), (n_params, cfg.param_count())
     log(f"[prefill] {arch}: {n_params} parameters initialised on the card in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s"
+        + (f", reduced {json.dumps(dict(reduced, params=n_params))}" if reduced else ""))
     tokens, embeds = backbone_inputs(cfg, PREFILL_LEN, device)
-    prefill(params, cfg, tokens, embeds)  # warm-up: cuBLAS workspaces, the kernels' first load
+    moe = MoeCapture()  # a MoE model's dispatch, read in the warm-up run
+    with moe.capture():  # warm-up: cuBLAS workspaces, the kernels' first load
+        _, warm_aux = prefill(params, cfg, tokens, embeds)
     torch.cuda.synchronize()
+    if cfg.n_experts:
+        moe.check(f"{arch} prefill S={PREFILL_LEN}", cfg, float(warm_aux["moe_dropped_frac"]))
+    del moe, warm_aux
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     (logits, aux), counts = counted_all(
@@ -1294,6 +1429,7 @@ def prefill_phase(arch: str, device, card) -> tuple:
         assert all(np.isfinite(v) for v in aux.values()), f"{arch}: non-finite aux {aux}"
     stats = {
         "arch": arch,
+        **({"reduced": reduced} if reduced else {}),
         "seq": PREFILL_LEN,
         "frontend_tokens": cfg.frontend_tokens if cfg.frontend else 0,
         "ms": seconds * 1e3,
@@ -1314,7 +1450,7 @@ def prefill_phase(arch: str, device, card) -> tuple:
     routes.check(f"{arch} prefill S={CHECK_LEN} plain on the kernel's choices",
                  LIMITS[arch].get("route_flips", 0.0))
     logits_close(f"{arch} prefill S={CHECK_LEN} kernel vs plain", k_logits, p_logits,
-                 LIMITS[arch]["prefill"], min_top1=1.0)
+                 LIMITS[arch]["prefill"], min_top1=1.0, ties=LIMITS[arch].get("ties", False))
     plain_logits = p_logits
     short_counts = {}
     if "ssd_scan_mma" in expect:  # a chunk with no tile instance of its own
@@ -1486,6 +1622,19 @@ def scan_rows_vs_f64(arch: str, p32, cfg32, toks) -> dict:
     return out
 
 
+def upcast_in_place(tree) -> None:
+    """Every tensor of ``tree`` (dicts and lists, and tuples of them)
+    replaced by its f32 copy, one at a time, each bf16 tensor freed before
+    the next is copied: the peak is the f32 tree and one bf16 tensor, not
+    both trees (deepseek-v3-671b's 4 layers: 60.4 GB and 7.5 GB, against
+    60.4 GB and 30.2 GB)."""
+    for key in (tree if isinstance(tree, dict) else range(len(tree))):
+        if isinstance(tree[key], torch.Tensor):
+            tree[key] = tree[key].float()
+        elif tree[key] is not None:
+            upcast_in_place(tree[key])
+
+
 def f32_phase(arch: str, cfg, params, device, card, bf16_plain=None) -> tuple[dict, dict]:
     """The logit checks with the same weights upcast to f32: kernel path
     against plain path at S=4096, and on the first 64 tokens decode against
@@ -1500,16 +1649,18 @@ def f32_phase(arch: str, cfg, params, device, card, bf16_plain=None) -> tuple[di
     path's: the gap bf16 rounding alone makes. A frontend model's prefills
     take its embeddings within S (``backbone_inputs``), its forwards the 64
     tokens after them; its text-only decode is held finite
-    (``frontend_decode_check``), not to a forward. Returns each kernel's
+    (``frontend_decode_check``), not to a forward. The weights are upcast
+    in place (``upcast_in_place``): the caller's ``params`` hold the f32
+    weights after it, so this phase comes last. Returns each kernel's
     launches by path and the prefill's record."""
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    if arch in F32_REPEATS:  # the first groups only: the f32 copy of all does not fit
+    if arch in F32_REPEATS:  # the first groups only
         repeats = F32_REPEATS[arch]
         cfg32 = dataclasses.replace(cfg32, n_pattern_repeats=repeats)
-        stack = dict(params["stack"], groups=params["stack"]["groups"][:repeats])
-        params = dict(params, stack=stack)
+        params["stack"]["groups"] = params["stack"]["groups"][:repeats]
         log(f"[f32] {arch}: {cfg32.n_layers} of {cfg.n_layers} layers, full width")
-    p32 = tree_map(lambda t: t.float(), params)
+    upcast_in_place(params)
+    p32 = params
     short = backbone_inputs(cfg, CHECK_LEN, device)
     expect = F32_LAUNCHES[arch]
     routes = Routing(cfg)
@@ -1566,8 +1717,6 @@ def f32_phase(arch: str, cfg, params, device, card, bf16_plain=None) -> tuple[di
     logits_close(f"{arch} f32 forward S={DECODE_LEN} kernel vs plain", fwd, p_fwd,
                  LIMITS[arch]["decode_f32"], min_top1=1.0)
     scan_rows_vs_f64(arch, p32, cfg32, toks)
-    del p32
-    torch.cuda.empty_cache()
     return {name: {f"{arch}:f32_prefill_{CHECK_LEN}": k_counts[name],
                    f"{arch}:f32_forward_{DECODE_LEN}": f_counts[name]} for name in expect}, stats
 
@@ -2926,15 +3075,16 @@ def run(child: subprocess.Popen) -> int:
     for arch in FORWARD_LAUNCHES:  # one model on the card at a time
         cfg, params, by_path, bf16_plain = prefill_phase(arch, device, card)
         log(f"[time] after {arch} prefill phase {time.perf_counter() - t_start:.1f} s")
+        serving_paths = serving_phase(arch, cfg, params, device, card)
+        log(f"[time] after {arch} serving phase {time.perf_counter() - t_start:.1f} s")
+        # last: it upcasts the weights in place
         f32_paths, f32_prefills[arch] = f32_phase(
             arch, cfg, params, device, card, None if arch in F32_REPEATS else bf16_plain)
-        del bf16_plain
-        log(f"[time] after {arch} f32 phase {time.perf_counter() - t_start:.1f} s")
-        for paths in (by_path, serving_phase(arch, cfg, params, device, card), f32_paths):
+        del bf16_plain, params
+        torch.cuda.empty_cache()
+        for paths in (by_path, serving_paths, f32_paths):
             for name, counts in paths.items():
                 model_paths[name].update(counts)
-        del params
-        torch.cuda.empty_cache()
         log(f"[time] after {arch} serving and f32 phases {time.perf_counter() - t_start:.1f} s")
     train_paths, train_record = training_phase(device, card)
     for name, counts in train_paths.items():

@@ -303,6 +303,34 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
+def test_deepseek_v3_cut_has_the_reference_layout():
+    """deepseek-v3-671b at chip_smoke's cut (its 3 dense layers and 1 of its
+    58 MoE layers, full width): the port's init on the meta device gives the
+    leaves of the JAX package's ``jax.eval_shape`` of its own init, path by
+    path in its flattening order, with the same shapes (a group leaf
+    stacked over the one group) and dtypes, and 15,111,101,440 parameters.
+    This holds the full-width q LoRA, the 128-head MLA at (192, 128) and the
+    256-expert layer to the reference without memory on either side."""
+    name, n = "deepseek-v3-671b", 15_111_101_440
+    jc = dataclasses.replace(jconfigs.get_config(name), n_pattern_repeats=1)
+    tc = dataclasses.replace(tconfigs.get_config(name), n_pattern_repeats=1)
+    ref = jax.eval_shape(lambda key: jm.init_params(jc, key), jax.random.PRNGKey(0))
+    port = tm.init_params(tc, torch.Generator(), device="meta")
+    ref_leaves = jax.tree_util.tree_flatten_with_path(ref)[0]
+    ours = transformer.reference_leaves(port)
+    assert len(ours) == len(ref_leaves)
+    for (path, tensors, stacked), (ref_path, leaf) in zip(ours, ref_leaves):
+        assert path == "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in ref_path)
+        shape = (len(tensors), *tensors[0].shape) if stacked else tuple(tensors[0].shape)
+        assert shape == tuple(leaf.shape), path
+        assert all(str(t.dtype) == f"torch.{leaf.dtype}" for t in tensors), path
+    assert sum(leaf.size for _, leaf in ref_leaves) == n == jc.param_count() == tc.param_count()
+    assert sum(t.numel() for t in _leaves(port)) == n
+    mixer, moe = port["stack"]["groups"][0][0]["mixer"], port["stack"]["groups"][0][0]["moe"]
+    assert tuple(mixer["q_up"].shape) == (1536, 128 * 192)
+    assert tuple(moe["w_up"].shape) == (256, 7168, 2048) and tc.top_k == 8
+
+
 @pytest.mark.parametrize("name", sorted(tconfigs.list_configs()))
 def test_every_config_initialises_with_its_parameter_count(name):
     """Every registered config, full size and smoke, initialises in the port

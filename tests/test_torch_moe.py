@@ -4,7 +4,9 @@ dispatch (rank-in-expert destinations, kept choices, the scattered buffer)
 and ``moe_apply``'s output and aux, from the same parameters (the JAX init
 carried over) and the same inputs, made with numpy from a seed. Cases: one
 group a sequence (prefill), a capacity so small that choices are dropped,
-and the whole slot batch as one group (decode)."""
+and the whole slot batch as one group (decode); then deepseek-v3-671b's
+router widths (256 experts, top-8) at smoke width, each case keeping some
+choices and dropping others."""
 import dataclasses
 
 import jax
@@ -23,13 +25,22 @@ ARCH = "deepseek-v2-lite-16b-smoke"  # 8 experts, top-2, 2 shared, d=64
 # (G, T, capacity_factor): sequences as groups at the configured capacity,
 # the same at a capacity that drops choices, the decode batch as one group
 CASES = [(2, 32, 1.25), (2, 32, 0.25), (1, 4, 1.25), (3, 17, 0.5)]
+V3 = "deepseek-v3-671b-smoke"
+# the full config's router widths on the smoke config (d=64, 1 shared expert)
+ROUTER = {V3: dict(n_experts=256, top_k=8)}
+# (G, T, capacity_factor) at those widths: the capacity's floor of 4 with
+# two and three groups, a prefill-like group of 1024 (C = 40), and a
+# capacity half the choices' even share (C = 8 for 16 a expert)
+V3_CASES = [(2, 64, 1.25), (3, 40, 0.5), (1, 1024, 1.25), (1, 512, 0.5)]
+# every case with its config, the v2-lite cases under their earlier ids
+ARCH_CASES = ([pytest.param(*c, ARCH, id="-".join(map(str, c))) for c in CASES]
+              + [pytest.param(*c, V3, id="v3-" + "-".join(map(str, c))) for c in V3_CASES])
 
 
 def _cfgs(capacity_factor, dtype="float32", arch=ARCH):
-    jc = dataclasses.replace(jconfigs.get_config(arch), dtype=dtype,
-                             capacity_factor=capacity_factor)
-    tc = dataclasses.replace(tconfigs.get_config(arch), dtype=dtype,
-                             capacity_factor=capacity_factor)
+    over = dict(dtype=dtype, capacity_factor=capacity_factor, **ROUTER.get(arch, {}))
+    jc = dataclasses.replace(jconfigs.get_config(arch), **over)
+    tc = dataclasses.replace(tconfigs.get_config(arch), **over)
     return jc, tc
 
 
@@ -66,12 +77,12 @@ def _routes(G, T, E, k, seed, skew=False):
     return topi.astype(np.int32)
 
 
-@pytest.mark.parametrize("G, T, factor", CASES)
+@pytest.mark.parametrize("G, T, factor, arch", ARCH_CASES)
 @pytest.mark.parametrize("skew", [False, True])
-def test_dispatch_matches_jax(G, T, factor, skew):
+def test_dispatch_matches_jax(G, T, factor, arch, skew):
     """dst, keep and the buffer's expert rows equal the JAX package's
     ``_dispatch_group`` (vmapped over the groups) exactly."""
-    jc, tc = _cfgs(factor)
+    jc, tc = _cfgs(factor, arch=arch)
     E, k, d = tc.n_experts, tc.top_k, tc.d_model
     C = tmoe.moe_capacity(T, tc)
     topi = _routes(G, T, E, k, seed=G * T, skew=skew)
@@ -86,6 +97,8 @@ def test_dispatch_matches_jax(G, T, factor, skew):
     assert tuple(buf.shape) == (G, E * C + 1, d)
     if skew and factor < 1:
         assert not bool(keep.all())  # the case overflows an expert
+    if arch == V3:
+        assert bool(keep.any()) and not bool(keep.all())
 
 
 @pytest.mark.parametrize("G, T, factor", CASES)
@@ -113,11 +126,11 @@ def test_dispatch_ranks_are_the_order_of_choice(G, T, factor):
         assert kept.unique().numel() == kept.numel()
 
 
-@pytest.mark.parametrize("G, T, factor", CASES)
-def test_moe_apply_matches_jax_f32(G, T, factor):
+@pytest.mark.parametrize("G, T, factor, arch", ARCH_CASES)
+def test_moe_apply_matches_jax_f32(G, T, factor, arch):
     """Output within 1e-5 and the aux within 1e-5 relative, at f32; a
     capacity under the tokens' needs drops choices (moe_dropped_frac > 0)."""
-    jc, tc = _cfgs(factor)
+    jc, tc = _cfgs(factor, arch=arch)
     jp, tp = _params(jc)
     jx, tx = _x(G, T, tc.d_model, "float32", seed=G + T)
     want, jaux = jmoe.moe_apply(jp, jc, jx)
@@ -128,7 +141,7 @@ def test_moe_apply_matches_jax_f32(G, T, factor):
     for key in jaux:
         assert aux[key].dtype == torch.float32
         np.testing.assert_allclose(float(aux[key]), float(jaux[key]), rtol=1e-5, err_msg=key)
-    if factor < 1 and T >= 17:
+    if factor < 1 and T >= 17 or arch == V3:
         assert float(aux["moe_dropped_frac"]) > 0
 
 

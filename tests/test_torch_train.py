@@ -257,7 +257,7 @@ def test_full_width_runs_kernel_layers():
 
 # the models chip_smoke prefills and serves at full width, one at a time
 CHIP_MODELS = ["gemma3-1b", "zamba2-7b", "rwkv6-3b", "minicpm3-4b", "deepseek-v2-lite-16b",
-               "starcoder2-7b", "phi-3-vision-4.2b", "musicgen-medium"]
+               "starcoder2-7b", "phi-3-vision-4.2b", "musicgen-medium", "deepseek-v3-671b"]
 # chip_smoke's counter of the bf16 kernel each kind of kernel layer reaches
 SMOKE_KERNEL = {"flash": "flash_attention_wgmma", "ssd": "ssd_scan_mma",
                 "rwkv6": "rwkv6_scan_mma"}
@@ -266,16 +266,19 @@ SMOKE_KERNEL = {"flash": "flash_attention_wgmma", "ssd": "ssd_scan_mma",
 @pytest.mark.parametrize("arch", CHIP_MODELS)
 def test_chip_smoke_launches_follow_the_config(arch):
     """chip_smoke's ``FORWARD_LAUNCHES``, ``SERVING`` and ``LIMITS`` name the
-    same eight models, and a model's launches a forward are its kernel
-    layers, one launch each, as its config gives them: the weights laid out
-    on the meta device (no storage) hold one layer per block. So a row
-    cannot drift from its config."""
-    from chip_smoke import FORWARD_LAUNCHES, LIMITS, SERVING
+    same nine models, and a model's launches a forward are its kernel
+    layers, one launch each, as its config gives them at the depth
+    ``PREFILL_REPEATS`` cuts it to: the weights laid out on the meta device
+    (no storage) hold one layer per block. So a row cannot drift from its
+    config."""
+    from chip_smoke import FORWARD_LAUNCHES, LIMITS, PREFILL_REPEATS, SERVING
     from repro_torch.models import init_params
     from repro_torch.models import transformer
 
     assert list(FORWARD_LAUNCHES) == list(SERVING) == list(LIMITS) == CHIP_MODELS
     cfg = get_config(arch)
+    if arch in PREFILL_REPEATS:
+        cfg = dataclasses.replace(cfg, n_pattern_repeats=PREFILL_REPEATS[arch])
     params = init_params(cfg, torch.Generator(), device="meta")
     assert len(transformer.layers(cfg, params["stack"])) == len(cfg.blocks) == cfg.n_layers
     want = {SMOKE_KERNEL[k]: n for k, n in kernel_layers(cfg).items()}
